@@ -1,0 +1,168 @@
+"""Build, load and count the port's hand-written CUDA kernels.
+
+Every source under ``csrc/`` is compiled by ``nvcc`` for Hopper
+(``sm_90a``) into one shared library with a plain C interface,
+``_build/libgsplat_kernels.so``, at first use: each source is compiled to an
+object by its own ``nvcc`` process, all started together, and one more
+``nvcc`` links them, so the build takes as long as its largest source as
+later slices add kernels.  The library is loaded with ``ctypes``; each C entry
+launches on the stream it is given and returns ``cudaGetLastError()``, which
+``check`` turns into an exception.
+
+Nothing here runs at import: the CPU tests import every module, and the
+machine that runs them has no ``nvcc`` and no card.
+
+``launch_counts`` holds one plain integer per kernel.  A wrapper adds one
+where it launches its kernel and nowhere else, so a caller can show that a
+run really went through the kernels.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+
+import torch
+
+_PKG = os.path.dirname(os.path.abspath(__file__))
+CSRC_DIR = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+LIB_PATH = os.path.join(BUILD_DIR, "libgsplat_kernels.so")
+SOURCES = ("common.cu", "expand.cu", "composite_fwd.cu")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-Xcompiler", "-fPIC",
+    # no fused multiply-add contraction: the kernels round every product and
+    # sum like the plain PyTorch versions, which run one op at a time, so
+    # K1's skip and termination decisions match its plain version exactly.
+    # With contraction K1 ran about 5% faster on an H100 at the 1080p asset
+    # and moved a few pixels by up to 2e-3 through flipped alpha >= 1/255
+    # tests (chip_smoke.py times both builds; PERF.md).
+    "--fmad=false",
+    "-Xptxas", "-v",
+)
+
+launch_counts = {"expand": 0, "composite_forward": 0}
+
+_VP = ctypes.c_void_p
+_I = ctypes.c_int
+SIGNATURES = {
+    # offsets, meta, gid_src, S, I, rw_bits, grid_x, num_tiles,
+    # tile_out, gid_out, stream
+    "gsplat_expand": (_VP, _VP, _VP, _I, _I, _I, _I, _I, _VP, _VP, _VP),
+    # table, P, C, gauss_id, starts, counts, num_tiles, grid_x, tile_x,
+    # tile_y, out, stream
+    "gsplat_composite_forward": (_VP, _I, _I, _VP, _VP, _VP, _I, _I, _I, _I,
+                                 _VP, _VP),
+}
+
+_lock = threading.Lock()
+_lib = None
+
+
+def reset_launch_counts():
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+def find_nvcc() -> str:
+    candidates = [shutil.which("nvcc")]
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    candidates.append("/usr/local/cuda/bin/nvcc")
+    for c in candidates:
+        if c and os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError(
+        "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin); the "
+        "CUDA kernels of gsplat_tpu_torch cannot be built")
+
+
+def _stale() -> bool:
+    if not os.path.exists(LIB_PATH):
+        return True
+    built = os.path.getmtime(LIB_PATH)
+    return any(os.path.getmtime(os.path.join(CSRC_DIR, f)) > built
+               for f in os.listdir(CSRC_DIR))
+
+
+def build() -> str:
+    """Compile every source for sm_90a and link the shared library.
+    Returns the ``-Xptxas -v`` report (registers, shared memory, spills per
+    kernel)."""
+    nvcc = find_nvcc()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    objs, procs = [], []
+    for src in SOURCES:
+        obj = os.path.join(BUILD_DIR, src.replace(".cu", ".o"))
+        objs.append(obj)
+        procs.append((src, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-I", CSRC_DIR, "-c",
+             os.path.join(CSRC_DIR, src), "-o", obj],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    report = []
+    failed = []
+    for src, p in procs:
+        out, _ = p.communicate()
+        report.append(f"== {src}\n{out}")
+        if p.returncode != 0:
+            failed.append(src)
+    if failed:
+        raise RuntimeError("nvcc failed for " + ", ".join(failed) + "\n"
+                           + "\n".join(report))
+    tmp = os.path.join(BUILD_DIR, f"libgsplat_kernels.{os.getpid()}.tmp.so")
+    link = subprocess.run(
+        [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+         "-Xcompiler", "-fPIC", *objs, "-o", tmp],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if link.returncode != 0:
+        raise RuntimeError("nvcc link failed\n" + link.stdout)
+    os.replace(tmp, LIB_PATH)
+    return "\n".join(report)
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library, built first if missing or older than a
+    source."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            if _stale():
+                build()
+            handle = ctypes.CDLL(LIB_PATH)
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            handle.gsplat_error_string.argtypes = (ctypes.c_int,)
+            handle.gsplat_error_string.restype = ctypes.c_char_p
+            _lib = handle
+        return _lib
+
+
+def stream_of(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check(err: int, name: str):
+    if err != 0:
+        msg = lib().gsplat_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+
+
+def require(cond: bool, msg: str):
+    """Argument validation that survives ``python -O``."""
+    if not cond:
+        raise ValueError(msg)
+
+
+def check_int32_vector(name: str, t: torch.Tensor, device: torch.device,
+                       n=None):
+    require(t.dtype == torch.int32, f"{name} must be int32, got {t.dtype}")
+    require(t.dim() == 1, f"{name} must be 1-D, got shape {tuple(t.shape)}")
+    require(t.is_contiguous(), f"{name} must be contiguous")
+    require(t.device == device, f"{name} is on {t.device}, expected {device}")
+    if n is not None:
+        require(t.shape[0] == n, f"{name} has {t.shape[0]} rows, expected {n}")

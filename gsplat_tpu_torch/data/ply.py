@@ -1,0 +1,76 @@
+"""Minimal PLY reader (binary little/big-endian + ascii), numpy-only.
+
+Port of ``gsplat_tpu/data/ply.py::read_ply`` on its pure-python path (the
+JAX package's native C++ fast path is not carried over).  Reads the vertex
+element of the reference checkpoint schema: x,y,z,nx,ny,nz,f_dc_*,f_rest_*,
+opacity,segment_*,scale_*,rot_*.
+"""
+from __future__ import annotations
+
+import io
+from typing import Dict, List, Tuple
+
+import numpy as np
+
+_PLY_TO_NP = {
+    "char": "i1", "int8": "i1",
+    "uchar": "u1", "uint8": "u1",
+    "short": "i2", "int16": "i2",
+    "ushort": "u2", "uint16": "u2",
+    "int": "i4", "int32": "i4",
+    "uint": "u4", "uint32": "u4",
+    "float": "f4", "float32": "f4",
+    "double": "f8", "float64": "f8",
+}
+
+
+def read_ply(path: str) -> Dict[str, np.ndarray]:
+    """Read the 'vertex' element into a dict of 1-D property arrays."""
+    with open(path, "rb") as f:
+        data = f.read()
+    header_end = data.find(b"end_header\n")
+    if header_end < 0:
+        raise ValueError(f"{path}: not a PLY file (no end_header)")
+    header = data[:header_end].decode("ascii", "replace").splitlines()
+    body = data[header_end + len(b"end_header\n"):]
+
+    fmt = None
+    elements: List[Tuple[str, int, List[Tuple[str, str]]]] = []
+    cur = None
+    for line in header:
+        t = line.strip().split()
+        if not t:
+            continue
+        if t[0] == "format":
+            fmt = t[1]
+        elif t[0] == "element":
+            cur = (t[1], int(t[2]), [])
+            elements.append(cur)
+        elif t[0] == "property" and cur is not None:
+            if t[1] == "list":
+                cur[2].append((t[-1], f"LIST:{t[2]}:{t[3]}"))
+            else:
+                cur[2].append((t[-1], _PLY_TO_NP[t[1]]))
+
+    out: Dict[str, np.ndarray] = {}
+    offset = 0
+    for name, count, props in elements:
+        if any(p[1].startswith("LIST") for p in props):
+            if name == "vertex":
+                raise ValueError("list properties unsupported on vertex element")
+            break  # faces etc. after vertex are not needed
+        if fmt == "ascii":
+            text = body.decode("ascii")
+            rows = np.loadtxt(io.StringIO(text), max_rows=count, ndmin=2)
+            for i, (pname, _) in enumerate(props):
+                if name == "vertex":
+                    out[pname] = rows[:, i]
+            break
+        endian = "<" if "little" in fmt else ">"
+        dtype = np.dtype([(p, endian + d) for p, d in props])
+        arr = np.frombuffer(body, dtype=dtype, count=count, offset=offset)
+        offset += dtype.itemsize * count
+        if name == "vertex":
+            for pname, _ in props:
+                out[pname] = np.ascontiguousarray(arr[pname])
+    return out
