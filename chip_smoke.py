@@ -17,14 +17,29 @@ Phases (any failure exits non-zero; nothing is caught):
    binning inputs — tile ids, gaussian ids and tile starts bit-equal;
 4. K1 (forward composite): the kernel against its plain version on that
    binning — every channel within the JAX tests' tolerances; K1 built with
-   the other ``--fmad`` setting, compared and (in phase 6) timed beside the
-   main build; the (pixel, instance) pairs these inputs need, counted for
+   the other ``--fmad`` setting, compared here and timed beside the main
+   build after the training path; the (pixel, instance) pairs these inputs need, counted for
    K1's bound;
-5. a small scene rendered on the card against the O(P*H*W) oracle;
-6. the main path: ``gsplat_tpu_torch.renderer.render`` once with the launch
-   counters zeroed just before — no overflow, finite outputs, each kernel
-   launched — then ms/frame over warmed renders and per-stage times, all
-   with CUDA events.
+5. K4 (segment sum) at the training path's inputs — the asset's instance
+   list sorted by gaussian id, [I, 12] rows from a seeded generator —
+   against its plain version and against ``index_add_`` (timed as the
+   library call); K2 (backward composite) on the asset's binning and K1's
+   packed output with a seeded cotangent against its plain version, per
+   column within 1e-3 of the column's maximum, every row finite, pad slots
+   zero, two launches bit-equal;
+6. a small scene rendered on the card against the O(P*H*W) oracle;
+7. the render path: ``gsplat_tpu_torch.renderer.render`` once with the
+   launch counters zeroed just before — no overflow, finite outputs, K3
+   and K1 launched — then ms/frame over warmed renders, device busy time
+   from a profiler window, and per-stage times, all with CUDA events;
+8. the training path: the asset in a model of 524,288 slots, targets
+   rendered from the unperturbed asset, parameters perturbed by seeded
+   noise; ten steps of ``train.trainer.make_train_step`` (SH degree 3,
+   num_class=2, segment loss, depth loss "L1_loss") with the launch counters
+   zeroed just before — K3, K1, K2 and K4 once per step, no overflow,
+   falling loss, finite state — then ms/step, device busy time per step,
+   one ``densify_and_prune`` whose clones and splits fire, and one more
+   step.
 
 The last three lines are the kernel table as one JSON object, the card
 line, and ``{"ok": true, "device": {...}}``.  Without a usable card the
@@ -176,6 +191,339 @@ def k1_pair_counts(torch, comp, table, gauss_id, starts, counts, grid_x,
     return tested, composited, stopping
 
 
+# fp32 operations of K2 (csrc/composite_bwd.cu) per (pixel, instance) pair: a
+# tested pair (every position up to the pixel's n_contrib) takes K1's 17 and
+# the n_contrib gate (1); a composited pair also takes g (2C), w (1), the
+# prefix (2), the suffix (1), d alpha (5), the cap test and dpow (2), the
+# five moment products (5), the T update (2), the feature products (Cg) and
+# one add per summed value (6 + Cg): 24 + 2C + 2Cg.
+K2_TEST_OPS = 18
+
+
+def k2_pair_ops(C, Cg):
+    return 24 + 2 * C + 2 * Cg
+
+
+def single_ms(torch, fn):
+    """ms of one call of ``fn`` (CUDA events), and its result."""
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b), out
+
+
+def profile_window(torch, fn, n, unit, median_ms, card, top=8):
+    """Device busy ms per ``unit`` over ``n`` profiled calls of ``fn`` (the
+    kernels' own durations), its idle share of ``median_ms`` and the largest
+    device items.  Returns the busy ms, or None if the profiler saw no
+    device events."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    dev_events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev_events:
+        print(f"profile ({unit}): the profiler saw no device events; device "
+              "busy time not measured")
+        return None
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+    busy_ms = sum(dev_us(e) for e in dev_events) / 1e3 / n
+    n_kernels = sum(e.count for e in dev_events) / n
+    print(f"profile [{card}]: device busy {busy_ms:.3f} ms/{unit} in "
+          f"{n_kernels:.0f} device ops/{unit}; idle share "
+          f"{1 - busy_ms / median_ms:.3f} of the {median_ms:.3f} ms "
+          f"median {unit}")
+    for e in sorted(dev_events, key=dev_us, reverse=True)[:top]:
+        print(f"  {dev_us(e) / 1e3 / n:8.4f} ms/{unit} "
+              f"x{e.count // n:<4d} {e.key[:90]}")
+    return busy_ms
+
+
+def phase_k4(torch, seg, card, gauss_id, P, R):
+    """K4 at the training path's inputs: the asset's instance list sorted by
+    gaussian id, [I, R] rows from a seeded generator."""
+    dev = gauss_id.device
+    I = gauss_id.shape[0]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    vals = torch.randn((I, R), generator=gen, device=dev)
+    sids, perm = torch.sort(gauss_id, stable=True)
+    out_k = seg.segment_sum_sorted(vals, sids, P, perm)
+    out_p = seg.segment_sum_sorted_plain(vals, sids, P, perm)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(out_k).all()), "K4: non-finite output")
+    err = float((out_k - out_p).abs().max())
+    n_kept = int((gauss_id < P).sum())
+    longest = int(torch.bincount(sids[sids < P].long(), minlength=1).max())
+    # rows are N(0,1); a segment of n rows sums to ~sqrt(n), and the two
+    # versions add the same float32 values in another order
+    tol = 1e-5 * max(1.0, math.sqrt(longest)) * 8
+    print(f"K4 segment_sum_sorted vs plain: max |diff| {err:.3g} (tolerance "
+          f"{tol:.3g}: float32 sums of up to {longest} rows in another "
+          f"order), {n_kept} of {I} rows kept, {P} segments")
+    check(err <= tol, "K4: kernel disagrees with its plain version")
+    # the one PyTorch call that computes the same function of (rows, ids):
+    # index_add_ on the unsorted ids, the pad sentinel landing in row P
+    idx_long = gauss_id.clamp(0, P).long()
+    lib_out = torch.empty((P + 1, R), device=dev)
+
+    def library():
+        return lib_out.zero_().index_add_(0, idx_long, vals)
+
+    lib_err = float((library()[:P] - out_k).abs().max())
+    check(lib_err <= tol, "K4: kernel disagrees with index_add_")
+    ms = event_ms(torch, lambda: seg.segment_sum_sorted(vals, sids, P, perm),
+                  20)
+    plain_ms = event_ms(torch, lambda: seg.segment_sum_sorted_plain(
+        vals, sids, P, perm), 5)
+    library_ms = event_ms(torch, library, 20)
+    sort_ms = event_ms(torch, lambda: torch.sort(gauss_id, stable=True), 20)
+    # bytes these inputs need: each kept row once with its id and its
+    # permutation entry, each output word once; one add per kept value
+    nbytes = n_kept * (R * 4 + 4 + 8) + P * R * 4
+    bound, by = bound_ms(nbytes, n_kept * R)
+    print(f"K4 [{card}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"index_add_ {library_ms:.4f} ms, the id sort before it "
+          f"{sort_ms:.4f} ms; bound {bound:.4f} ms ({nbytes} bytes, "
+          f"{n_kept * R} adds)")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": library_ms}
+
+
+def phase_k2(torch, comp, card, k1_args, packed, P, C, tested, composited):
+    """K2 on the asset's binning and K1's packed output, with a seeded
+    cotangent, against its plain version."""
+    table, gauss_id, starts, counts, gx = k1_args
+    dev = table.device
+    Cg = C - 1                      # the ones channel gets no gradient row
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    d_packed = torch.randn(packed.shape, generator=gen, device=dev)
+    args = (*k1_args, packed, d_packed, Cg)
+    d_k = comp.composite_backward(*args)
+    torch.cuda.synchronize()
+    plain_ms, d_p = single_ms(torch, lambda: comp.composite_backward_plain(
+        *args))
+    check(bool(torch.isfinite(d_k).all()), "K2: non-finite gradient row")
+    pad_max = float(d_k[gauss_id >= P].abs().max())
+    check(pad_max == 0.0, f"K2: pad slots carry gradient (max {pad_max})")
+    diff = (d_k - d_p).abs().amax(dim=0)
+    scale = d_p.abs().amax(dim=0)
+    check(bool((scale > 0).all()), "K2: a gradient column is all zero")
+    scaled = (diff / scale).tolist()
+    err = float(diff.max())
+    names = ["mean_x", "mean_y", "conic_a", "conic_b", "conic_c", "opacity"
+             ] + [f"feat{c}" for c in range(Cg)]
+    print("K2 composite_backward vs plain, max |diff| over the column's max "
+          "(tolerance 1e-3, tests/test_pallas_composite.py:96-100): "
+          + ", ".join(f"{n} {e:.2e}" for n, e in zip(names, scaled))
+          + f"; max |diff| {err:.3g}; rows written "
+          f"{int((d_k != 0).any(dim=1).sum())} of {d_k.shape[0]}; plain "
+          f"version {plain_ms:.1f} ms")
+    check(max(scaled) <= 1e-3, "K2: kernel disagrees with its plain version")
+    again = comp.composite_backward(*args)
+    check(torch.equal(again, d_k), "K2: two launches gave different bits")
+    ms = event_ms(torch, lambda: comp.composite_backward(*args), 10)
+    nbytes = (table.numel() * 4 + int(counts.sum()) * 4
+              + 2 * 4 * starts.shape[0] + 2 * packed.numel() * 4
+              + d_k.numel() * 4)
+    nops = K2_TEST_OPS * tested + k2_pair_ops(C, Cg) * composited
+    bound, by = bound_ms(nbytes, nops)
+    print(f"K2 [{card}]: kernel {ms:.4f} ms (with the zero fill of its "
+          f"[{d_k.shape[0]}, {d_k.shape[1]}] output); bound {bound:.4f} ms "
+          f"({nbytes} bytes; {nops} ops = {K2_TEST_OPS} x {tested} pairs up "
+          f"to n_contrib + {k2_pair_ops(C, Cg)} x {composited} composited)")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": None}
+
+
+TRAIN_CAPACITY = 524288
+TRAIN_STEPS = 10
+# The reference's inverse-depth L1 turns a pixel no gaussian touches
+# (depth 0) into 1e6; a third of the asset's view is such pixels, and at the
+# default weight 0.1 that constant (and its jumps when a pixel's coverage
+# flips) would swamp the float32 loss.  The weight is cut so the depth
+# channel still gets a real cotangent and the loss stays readable.
+TRAIN_LAMBDA_DEPTH = 1e-7
+
+
+def phase_train(torch, np, card, cam, model, cap):
+    """The training path through ``make_train_step`` at full width: the
+    asset in a model of TRAIN_CAPACITY slots, targets rendered from the
+    unperturbed asset, parameters perturbed by seeded noise, TRAIN_STEPS Adam
+    steps, one ``densify_and_prune``, one more step.  Returns the launch
+    counts of the steps and the step count."""
+    from gsplat_tpu_torch import _kernels, renderer
+    from gsplat_tpu_torch.config import OptimizationParams
+    from gsplat_tpu_torch.models import adam, densify
+    from gsplat_tpu_torch.models.gaussians import GaussianModel
+    from gsplat_tpu_torch.ops.rasterize import RasterizeConfig
+    from gsplat_tpu_torch.train import schedules, trainer
+
+    dev = model.device
+    P = model.capacity
+    tm = GaussianModel(3, num_class=NUM_CLASS, capacity=TRAIN_CAPACITY,
+                       device=dev)
+    for dst, src in zip(tm.params, model.params):
+        dst[:P] = src
+    tm.aux.alive[:P] = True
+    tm.active_sh_degree = 3
+    tm.training_setup()
+
+    target = renderer.render(cam, tm, max_instances=cap, device=dev)
+    check(not bool(target["overflow"]), "train: target render overflowed")
+    batch = trainer.camera_batch(
+        cam, gt_depth=target["depth_raw"][None],
+        gt_seg=torch.argmax(target["segment"], dim=0), device=dev)
+    batch["gt_image"] = target["render"]
+    untouched = int((target["depth_raw"] <= 0).sum())
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    noise = dict(xyz=0.005, features_dc=0.05, features_rest=0.01,
+                 scaling=0.05, rotation=0.02, opacity=0.2, segment=0.3)
+    params = tm.params._replace(**{
+        k: torch.cat([v[:P] + noise[k] * torch.randn(
+            v[:P].shape, generator=gen, device=dev), v[P:]])
+        for k, v in tm.params._asdict().items()})
+    opt_state, aux = tm.opt_state, tm.aux
+
+    opt = OptimizationParams()
+    opt.lambda_depth = TRAIN_LAMBDA_DEPTH
+    cfg = RasterizeConfig(width=W, height=H, sh_degree=3,
+                          num_class=NUM_CLASS, max_instances=cap)
+    step = trainer.make_train_step(cfg, opt, 3, "L1_loss", True,
+                                   torch.zeros(3, device=dev), device=dev)
+    lr_fn = schedules.make_lr_fn(opt, 1.0)
+
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    history, times = [], []
+    for it in range(1, TRAIN_STEPS + 1):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        params, opt_state, aux, m = step(params, opt_state, aux, batch,
+                                         lr_fn(it))
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+        history.append({k: float(v) for k, v in m.items()})
+    launches = dict(_kernels.launch_counts)
+    print(f"train: launches over {TRAIN_STEPS} steps {json.dumps(launches)}")
+    check(all(v == TRAIN_STEPS for v in launches.values()),
+          "train: K3, K1, K2 and K4 did not each launch once per step")
+    for h in (history[0], history[-1]):
+        print("train: step metrics " + json.dumps(h))
+    check(all(math.isfinite(h["loss"]) for h in history),
+          "train: non-finite loss")
+    check(not any(h["overflow"] for h in history), "train: a step overflowed")
+    check(history[-1]["loss"] < history[0]["loss"],
+          f"train: loss did not fall ({history[0]['loss']} -> "
+          f"{history[-1]['loss']})")
+    check(history[-1]["l1"] < history[0]["l1"], "train: l1 did not fall")
+    for name, tree in (("params", params), ("mu", opt_state.mu),
+                       ("nu", opt_state.nu), ("aux", aux[1:])):
+        check(all(bool(torch.isfinite(x).all()) for x in tree),
+              f"train: non-finite {name}")
+    check(int(opt_state.count) == TRAIN_STEPS, "train: Adam step count")
+    ms_step = float(np.median(times[2:]))
+    print(f"train {W}x{H} [{card}]: capacity {TRAIN_CAPACITY}, {P} alive, "
+          f"{untouched} target pixels untouched, lambda_depth "
+          f"{TRAIN_LAMBDA_DEPTH}; loss {history[0]['loss']:.6f} -> "
+          f"{history[-1]['loss']:.6f}, l1 {history[0]['l1']:.6f} -> "
+          f"{history[-1]['l1']:.6f}; median {ms_step:.3f} ms/step over "
+          f"{len(times) - 2} warmed steps (p10 "
+          f"{np.percentile(times[2:], 10):.3f}, p90 "
+          f"{np.percentile(times[2:], 90):.3f}; first step {times[0]:.1f})")
+
+    # the same profiler window as the frames, over 5 more steps
+    state = [params, opt_state, aux]
+
+    def one_step():
+        state[0], state[1], state[2], _ = step(*state, batch,
+                                               lr_fn(TRAIN_STEPS))
+    profile_window(torch, one_step, 5, "step", ms_step, card, top=12)
+    params, opt_state, aux = state
+
+    # the step's three stages, timed apart on the same state: forward
+    # (render and losses), backward (one autograd.grad: K2, K4, preprocess),
+    # update (statistics, Adam, overflow gate)
+    loss_fn = trainer.make_loss_fn(cfg, opt, 3, "L1_loss", True,
+                                   torch.zeros(3, device=dev), device=dev)
+    lrs = lr_fn(TRAIN_STEPS)
+    lrs_tree = type(params)(**{k: lrs[k] for k in params._fields})
+    stage = {"forward": [], "backward": [], "update": []}
+    for _ in range(6):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        leaves = type(params)(*[x.detach().requires_grad_(True)
+                                for x in params])
+        m2d = torch.zeros((TRAIN_CAPACITY, 2), device=dev,
+                          requires_grad=True)
+        ev[0].record()
+        loss, auxout = loss_fn(leaves, m2d, batch)
+        ev[1].record()
+        grads = torch.autograd.grad(loss, [*leaves, m2d])
+        ev[2].record()
+        new_aux = densify.add_densification_stats(aux, grads[-1],
+                                                  auxout["radii"])
+        new_p, new_o = adam.update(type(params)(*grads[:-1]), opt_state,
+                                   params, lrs_tree)
+        trainer.gate_on_overflow(auxout["overflow"],
+                                 (new_p, new_o, new_aux),
+                                 (params, opt_state, aux))
+        ev[3].record()
+        torch.cuda.synchronize()
+        for name, a, b in zip(stage, ev, ev[1:]):
+            stage[name].append(a.elapsed_time(b))
+    print(f"train stages [{card}] (median of 5 after one warm-up, ms): "
+          + ", ".join(f"{k} {np.median(v[1:]):.3f}" for k, v in stage.items()))
+
+    # one densification with a threshold that fires: the 90th percentile
+    # of the accumulated gradient norms, and the clone/split boundary at
+    # the median scale of the candidates so that both branches fire
+    grads = torch.where(aux.denom > 0, aux.xyz_gradient_accum / aux.denom,
+                        0.0)
+    seen = aux.alive & (aux.denom > 0)
+    thr = float(torch.quantile(grads[seen], 0.9))
+    cand = aux.alive & (grads >= thr)
+    max_scale = torch.exp(params.scaling).max(dim=1).values
+    extent = float(torch.quantile(max_scale[cand], 0.5)) / opt.percent_dense
+    alive_before = int(aux.alive.sum())
+    params, aux, opt_state, stats = densify.densify_and_prune(
+        params, aux, opt_state, thr, 0.005, extent, 20, opt.percent_dense,
+        use_screen_size=False, generator=gen)
+    st = {k: int(v) for k, v in stats._asdict().items()}
+    print(f"densify: threshold {thr:.3g}, extent {extent:.3g}, alive before "
+          f"{alive_before}, stats {json.dumps(st)}")
+    check(st["n_cloned"] > 0 and st["n_split"] > 0,
+          "densify: clones and splits did not both fire")
+    check(st["n_dropped"] == 0, "densify: candidates dropped")
+    check(st["n_alive"] == alive_before + st["n_cloned"] + st["n_split"]
+          - st["n_pruned"] == int(aux.alive.sum()),
+          "densify: n_alive does not follow from the stats")
+    check(all(bool(torch.isfinite(x).all()) for x in params),
+          "densify: non-finite parameter")
+    params, opt_state, aux, m = step(params, opt_state, aux, batch,
+                                     lr_fn(TRAIN_STEPS + 1))
+    check(math.isfinite(float(m["loss"])) and not bool(m["overflow"]),
+          "train: the step after densification failed")
+    print(f"train: step after densification: loss {float(m['loss']):.6f}, "
+          f"num_rendered {int(m['num_rendered'])}, n_visible "
+          f"{int(m['n_visible'])}")
+    return launches, TRAIN_STEPS
+
+
 def main():
     import numpy as np
     import torch
@@ -193,6 +541,7 @@ def main():
     from gsplat_tpu_torch.ops import binning as bin_lib
     from gsplat_tpu_torch.ops import composite_cuda as comp
     from gsplat_tpu_torch.ops import preprocess as pre_lib
+    from gsplat_tpu_torch.ops import segment_reduce as seg_lib
     from gsplat_tpu_torch.ops.composite_ref import composite_reference
 
     # plain versions use no matmul, but state the fp32 modes all the same
@@ -318,7 +667,12 @@ def main():
     print(f"K1 pairs: {tested} tested, {contributing} composited, "
           f"{stopping} stopping ({time.perf_counter() - t0:.1f} s to count)")
 
-    # ---- 5. a small scene against the oracle ------------------------------
+    # ---- 5. K4 and K2 against their plain versions -------------------------
+    k4 = phase_k4(torch, seg_lib, card, gid_sorted, P, comp.ATTR_BASE + C - 1)
+    k2 = phase_k2(torch, comp, card, k1_args, packed_k, P, C,
+                  int(packed_p[:, C + 1].sum()), contributing)
+
+    # ---- 6. a small scene against the oracle ------------------------------
     rng = np.random.default_rng(1)
     ns = 300
     small = params_from_numpy(dict(
@@ -352,15 +706,15 @@ def main():
     print("small scene (64x64, 300 gaussians): card render within tolerance "
           "of the oracle")
 
-    # ---- 6. the main path -------------------------------------------------
+    # ---- 7. the render path -----------------------------------------------
     torch.cuda.synchronize()
     _kernels.reset_launch_counts()
     out = renderer.render(cam, model, device=dev)
     torch.cuda.synchronize()
     launches = dict(_kernels.launch_counts)
     print(f"render: launches {json.dumps(launches)}")
-    check(all(v > 0 for v in launches.values()),
-          "render did not launch every kernel")
+    check(launches["expand"] == 1 and launches["composite_forward"] == 1,
+          "render did not launch K3 and K1 once each")
     check(not bool(out["overflow"]), "render overflowed its capacity")
     check(out["render"].shape == (3, H, W) and out["alpha"].shape == (H, W)
           and out["segment"].shape == (NUM_CLASS, H, W), "output shapes")
@@ -396,31 +750,12 @@ def main():
 
     # device busy time per frame from a profiled window of renders: the
     # kernels' own durations, against the frame time above (idle share)
-    from torch.profiler import ProfilerActivity, profile
-    n_prof = 10
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n_prof):
-            renderer.render(cam, model, device=dev)
-        torch.cuda.synchronize()
-    dev_events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-    if dev_events:
-        def dev_us(e):
-            return getattr(e, "self_device_time_total",
-                           getattr(e, "self_cuda_time_total", 0.0))
-        busy_ms = sum(dev_us(e) for e in dev_events) / 1e3 / n_prof
-        n_kernels = sum(e.count for e in dev_events) / n_prof
-        print(f"profile [{card}]: device busy {busy_ms:.3f} ms/frame in "
-              f"{n_kernels:.0f} device ops/frame; idle share "
-              f"{1 - busy_ms / ms_frame:.3f} of the {ms_frame:.3f} ms "
-              "median frame")
-        for e in sorted(dev_events, key=dev_us, reverse=True)[:8]:
-            print(f"  {dev_us(e) / 1e3 / n_prof:8.4f} ms/frame "
-                  f"x{e.count // n_prof:<4d} {e.key[:90]}")
-    else:
-        print("profile: the profiler saw no device events; device busy "
-              "time not measured")
+    profile_window(torch, lambda: renderer.render(cam, model, device=dev),
+                   10, "frame", ms_frame, card)
+
+    # ---- 8. the training path ---------------------------------------------
+    train_launches, train_steps = phase_train(torch, np, card, cam, model,
+                                              cap)
 
     # per-stage times on the main path's own inputs
     tile_k, gid_k = bin_lib.expand(*k3_args)
@@ -487,7 +822,19 @@ def main():
          "max_abs_err": k1_err, "ms": stage_ms["K1 kernel alone"],
          "plain_ms": k1_plain_ms, "bound_ms": k1_bound, "bound_by": k1_by,
          "library_ms": None},
+        {"name": "K2 composite_backward", "route": "cuda",
+         "source": "gsplat_tpu_torch/csrc/composite_bwd.cu",
+         "replaces": "gsplat_tpu/ops/composite_pallas.py:356",
+         "launches": train_launches["composite_backward"], **k2},
+        {"name": "K4 segment_sum_sorted", "route": "cuda",
+         "source": "gsplat_tpu_torch/csrc/segsum.cu",
+         "replaces": "gsplat_tpu/ops/segment_reduce.py:38",
+         "launches": train_launches["segment_sum"], **k4},
     ]
+    print(f"launches: K3 and K1 from the one render, K2 and K4 from the "
+          f"{train_steps} training steps (K3 and K1 also ran "
+          f"{train_launches['expand']} and "
+          f"{train_launches['composite_forward']} times there)")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -8,13 +8,19 @@ loaded with ``ctypes`` (``_kernels.py``).
 
 This package imports neither ``jax`` nor anything of ``gsplat_tpu``.
 
-Ported so far (the serving path, ``renderer.render``):
+Ported so far (the serving path, ``renderer.render``, and the training
+step, ``train.trainer.make_train_step``):
 
 - ``core``   : cameras (numpy), quaternion/covariance math, SH evaluation
 - ``data``   : PLY reading
-- ``models`` : ``GaussianParams`` / ``GaussianModel`` (no optimizer yet)
+- ``models`` : ``GaussianParams`` / ``GaussianAux`` / ``GaussianModel``,
+               per-group Adam, densification (clone / split / prune)
 - ``ops``    : preprocess, binning (expansion kernel K3), composite
-               (forward kernel K1), rasterize, the O(P*H*W) oracle
+               (forward kernel K1, backward kernel K2), the segment sum
+               (kernel K4) behind the gather's adjoint, differentiable
+               rasterize, KNN scale init, the O(P*H*W) oracle
+- ``train``  : losses, learning-rate schedules, the train step
+- ``config`` : ``OptimizationParams``
 
 Entry points run on the card (``device="cuda"``) unless the caller asks for
 the CPU, where every kernel wrapper uses its plain PyTorch version.

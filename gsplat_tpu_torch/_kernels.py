@@ -30,7 +30,8 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 LIB_PATH = os.path.join(BUILD_DIR, "libgsplat_kernels.so")
-SOURCES = ("common.cu", "expand.cu", "composite_fwd.cu")
+SOURCES = ("common.cu", "expand.cu", "composite_fwd.cu", "composite_bwd.cu",
+           "segsum.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",
@@ -44,7 +45,8 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
-launch_counts = {"expand": 0, "composite_forward": 0}
+launch_counts = {"expand": 0, "composite_forward": 0, "composite_backward": 0,
+                 "segment_sum": 0}
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
@@ -56,6 +58,12 @@ SIGNATURES = {
     # tile_y, out, stream
     "gsplat_composite_forward": (_VP, _I, _I, _VP, _VP, _VP, _I, _I, _I, _I,
                                  _VP, _VP),
+    # table, P, C, Cg, gauss_id, starts, counts, num_tiles, grid_x, tile_x,
+    # tile_y, packed, d_packed, d_inst, stream
+    "gsplat_composite_backward": (_VP, _I, _I, _I, _VP, _VP, _VP, _I, _I, _I,
+                                  _I, _VP, _VP, _VP, _VP),
+    # vals, sids, perm (or null), I, R, num_segments, out, stream
+    "gsplat_segment_sum": (_VP, _VP, _VP, _I, _I, _I, _VP, _VP),
 }
 
 _lock = threading.Lock()

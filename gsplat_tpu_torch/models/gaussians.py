@@ -2,11 +2,13 @@
 
 Parameters live in fixed-capacity tensors ``[capacity, ...]`` with an
 ``alive`` mask, as in the JAX package: dead slots carry opacity logit -30 so
-the rasterizer's own alpha test culls them.  This slice carries what the
-renderer needs: the parameter layout, PLY / npz loading and
-``params_from_numpy``, which takes the JAX model's fields as numpy arrays so
-both packages render one scene.  The optimizer, densification and KNN
-initialisation come with the training slice.
+the rasterizer's own alpha test culls them.  Carried here: the parameter
+and bookkeeping layout, initialisation from a point cloud (KNN scales), the
+Adam state, capacity growth, PLY / npz loading, and ``params_from_numpy`` /
+``aux_from_numpy`` / ``adam_state_from_numpy``, which take the JAX model's
+fields as numpy arrays so both packages start from one state.  Clone, split
+and prune live in ``models/densify.py``; ``save_ply`` and the checkpoints
+come with the trainer and command-line slice.
 """
 from __future__ import annotations
 
@@ -16,8 +18,12 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from gsplat_tpu_torch.core import sh as sh_lib
+from gsplat_tpu_torch.core import transforms as T
 from gsplat_tpu_torch.data import ply as ply_io
 from gsplat_tpu_torch.device import resolve_device
+from gsplat_tpu_torch.models import adam
+from gsplat_tpu_torch.ops.knn import dist2_knn
 
 DEAD_OPACITY_LOGIT = -30.0
 DEAD_XYZ = 1e8  # park dead gaussians far outside every frustum
@@ -32,6 +38,14 @@ class GaussianParams(NamedTuple):
     rotation: torch.Tensor       # [C,4] quaternion (unnormalized)
     opacity: torch.Tensor        # [C,1] logit
     segment: torch.Tensor        # [C,S] logit
+
+
+class GaussianAux(NamedTuple):
+    """Non-trainable per-gaussian state (densification bookkeeping)."""
+    alive: torch.Tensor               # [C] bool
+    max_radii2d: torch.Tensor         # [C] f32
+    xyz_gradient_accum: torch.Tensor  # [C] f32
+    denom: torch.Tensor               # [C] f32
 
 
 def empty_params(capacity: int, sh_degree: int, num_class: int,
@@ -52,8 +66,29 @@ def empty_params(capacity: int, sh_degree: int, num_class: int,
     )
 
 
+def empty_aux(capacity: int, device="cuda") -> GaussianAux:
+    dev = resolve_device(device)
+    return GaussianAux(
+        alive=torch.zeros((capacity,), dtype=torch.bool, device=dev),
+        max_radii2d=torch.zeros((capacity,), dtype=torch.float32, device=dev),
+        xyz_gradient_accum=torch.zeros((capacity,), dtype=torch.float32,
+                                       device=dev),
+        denom=torch.zeros((capacity,), dtype=torch.float32, device=dev),
+    )
+
+
+def _pad_rows(tree_old, tree_empty):
+    """``tree_empty`` (more rows) with ``tree_old``'s rows copied in front."""
+    out = []
+    for o, e in zip(tree_old, tree_empty):
+        e[:o.shape[0]] = o
+        out.append(e)
+    return type(tree_old)(*out)
+
+
 class GaussianModel:
-    """Host-side container of the parameter tensors and the alive mask."""
+    """Host-side container of the functional state: parameters, bookkeeping
+    (``aux``) and, after ``training_setup``, the Adam state."""
 
     def __init__(self, sh_degree: int, num_class: int = 2,
                  capacity: int = 1 << 19, device="cuda"):
@@ -62,12 +97,33 @@ class GaussianModel:
         self.active_sh_degree = 0
         self.num_class = int(num_class)
         self.capacity = int(capacity)
+        self.spatial_lr_scale = 1.0
         self.params = empty_params(self.capacity, sh_degree, num_class,
                                    self.device)
-        self.alive = torch.zeros((self.capacity,), dtype=torch.bool,
-                                 device=self.device)
+        self.aux = empty_aux(self.capacity, self.device)
+        self.opt_state: Optional[adam.AdamState] = None
 
     # --- activated views (scene/gaussian_model.py:100-131) -------------------
+    @property
+    def get_xyz(self):
+        return self.params.xyz
+
+    @property
+    def get_scaling(self):
+        return T.scaling_activation(self.params.scaling)
+
+    @property
+    def get_rotation(self):
+        return T.rotation_activation(self.params.rotation)
+
+    @property
+    def get_opacity(self):
+        return T.opacity_activation(self.params.opacity)
+
+    @property
+    def get_segment(self):
+        return T.segment_activation(self.params.segment)
+
     @property
     def get_features(self):
         return torch.cat([self.params.features_dc, self.params.features_rest],
@@ -75,7 +131,59 @@ class GaussianModel:
 
     @property
     def num_alive(self) -> int:
-        return int(self.alive.sum())
+        return int(self.aux.alive.sum())
+
+    def oneup_sh_degree(self):
+        if self.active_sh_degree < self.max_sh_degree:
+            self.active_sh_degree += 1
+
+    # --- init (scene/gaussian_model.py:133-160) ------------------------------
+    def create_from_pcd(self, points: np.ndarray, colors: np.ndarray,
+                        spatial_lr_scale: float):
+        n = points.shape[0]
+        if n > self.capacity:
+            raise ValueError(
+                f"point cloud ({n}) exceeds capacity ({self.capacity})")
+        self.spatial_lr_scale = float(spatial_lr_scale)
+        f32 = dict(dtype=torch.float32, device=self.device)
+        pts = torch.as_tensor(np.asarray(points, np.float32), **f32)
+        dist2 = torch.clamp(dist2_knn(pts), min=1e-7)
+        scales = torch.log(torch.sqrt(dist2))[:, None].repeat(1, 3)
+        fused_color = sh_lib.rgb_to_sh(
+            torch.as_tensor(np.asarray(colors, np.float32), **f32))
+        p = self.params
+        p.xyz[:n] = pts
+        p.features_dc[:n, 0] = fused_color
+        p.scaling[:n] = scales
+        p.opacity[:n] = T.inverse_sigmoid(torch.full((n, 1), 0.1, **f32))
+        p.segment[:n] = T.inverse_sigmoid(
+            torch.full((n, p.segment.shape[1]), 0.1, **f32))
+        self.aux.alive[:n] = True
+        print(f"Number of points at initialisation : {n}")
+
+    def training_setup(self):
+        self.opt_state = adam.init(self.params)
+
+    def grow_capacity(self, new_capacity: int):
+        """Reallocate to a larger fixed capacity, keeping slot indices
+        (existing rows copy over; new slots are dead).  Adam moments (if
+        any) are carried over with zeroed state for the new slots."""
+        new_capacity = int(new_capacity)
+        if new_capacity <= self.capacity:
+            return
+        old_cap = self.capacity
+        self.capacity = new_capacity
+        self.params = _pad_rows(self.params, empty_params(
+            new_capacity, self.max_sh_degree, self.params.segment.shape[1],
+            self.device))
+        self.aux = _pad_rows(self.aux, empty_aux(new_capacity, self.device))
+        if self.opt_state is not None:
+            zeros = adam.init(self.params)
+            self.opt_state = adam.AdamState(
+                count=self.opt_state.count,
+                mu=_pad_rows(self.opt_state.mu, zeros.mu),
+                nu=_pad_rows(self.opt_state.nu, zeros.nu))
+        print(f"[model] capacity grown {old_cap} -> {new_capacity}")
 
     def _set_rows(self, xyz, f_dc, f_rest, scaling, rot, opacity, seg,
                   capacity: int):
@@ -90,9 +198,8 @@ class GaussianModel:
             dst[:n] = torch.from_numpy(np.array(src, np.float32)).to(
                 self.device)
         self.params = p
-        self.alive = torch.zeros((self.capacity,), dtype=torch.bool,
-                                 device=self.device)
-        self.alive[:n] = True
+        self.aux = empty_aux(self.capacity, self.device)
+        self.aux.alive[:n] = True
         self.active_sh_degree = self.max_sh_degree
 
     # --- loading ---------------------------------------------------------------
@@ -163,7 +270,31 @@ def params_from_numpy(d: dict, device="cuda", num_class: Optional[int] = None,
                 d["scaling"], d["rotation"], d["opacity"], d["segment"],
                 capacity)
     if "alive" in d:
-        m.alive = torch.from_numpy(np.array(d["alive"], bool)).to(m.device)
+        m.aux = m.aux._replace(alive=_tensor(d["alive"], m.device, bool))
     if active_sh_degree is not None:
         m.active_sh_degree = int(active_sh_degree)
     return m
+
+
+def _tensor(a, device, dtype=None):
+    return torch.from_numpy(np.array(a, dtype)).to(resolve_device(device))
+
+
+def aux_from_numpy(d: dict, device="cuda") -> GaussianAux:
+    """The port's ``GaussianAux`` from the JAX one's fields as numpy arrays
+    (``{k: np.asarray(v) for k, v in jax_aux._asdict().items()}``)."""
+    return GaussianAux(
+        alive=_tensor(d["alive"], device, bool),
+        **{k: _tensor(d[k], device, np.float32)
+           for k in GaussianAux._fields[1:]})
+
+
+def adam_state_from_numpy(count, mu: dict, nu: dict,
+                          device="cuda") -> adam.AdamState:
+    """The port's ``AdamState`` over ``GaussianParams`` from the JAX one's
+    ``count`` and the fields of its ``mu`` and ``nu`` as numpy arrays."""
+    def tree(d):
+        return GaussianParams(**{k: _tensor(d[k], device, np.float32)
+                                 for k in GaussianParams._fields})
+    return adam.AdamState(count=_tensor(count, device, np.int32),
+                          mu=tree(mu), nu=tree(nu))

@@ -1,13 +1,18 @@
-"""Top-level rasterizer, forward only: preprocess -> binning -> composite.
+"""Top-level differentiable rasterizer: preprocess -> binning -> composite.
 
 PyTorch port of ``gsplat_tpu/ops/rasterize.py``.  Channels are composited in
 one pass: rgb (3) + depth (1) [+ segments (S)] + weight (1), or rgb alone
 under ``render_only``.  Binning pads every tile's segment to 128 instances
 as the JAX Pallas path does, so both packages bin identically.
 
-This slice is forward-only.  Gradients (the backward kernel and the
-gather's adjoint) arrive with the training slice; until then an input that
-requires grad raises instead of being silently detached.
+Gradients: preprocess and the background term are plain autograd; the
+composite is one ``torch.autograd.Function`` (forward kernel K1, backward
+kernel K2, then the gather's adjoint with the segment-sum kernel K4).
+Binning is index bookkeeping and sees detached inputs.
+
+``means2d_offset`` is the gradient tap that stands in for the reference's
+``screenspace_points``: pass zeros [P,2] that require grad; its gradient is
+the pixel-space dL/d(mean2d).
 """
 from __future__ import annotations
 
@@ -37,7 +42,7 @@ class RasterizeConfig:
     tile_batch: int = 32            # JAX jnp path only; unused here
     backend: str = "auto"           # only "auto": kernel K1 (its plain
                                     # version on CPU tensors)
-    grad_precision: str = "f32"     # training slice
+    grad_precision: str = "f32"     # "bf16" grad reduce: not ported yet
     cull: str = "none"              # "exact": not ported yet
     max_rows: int = 0               # row capacity for cull="exact": not
                                     # ported yet
@@ -110,11 +115,6 @@ def rasterize(
                    means2d_offset=means2d_offset,
                    colors_precomp=colors_precomp, cov3d_precomp=cov3d_precomp)
     check_on(dev, **tensors)
-    if any(t is not None and t.requires_grad for t in tensors.values()):
-        raise NotImplementedError(
-            "rasterize is forward-only in this slice: gradients (the "
-            "backward kernel K2 and the gather adjoint with K4) come with "
-            "the training slice; see ROADMAP.md")
 
     def on_dev(x):
         return torch.as_tensor(x, dtype=torch.float32, device=dev)
@@ -135,12 +135,16 @@ def rasterize(
     if means2d_offset is not None:
         pre = pre._replace(means2d=pre.means2d + means2d_offset)
 
+    # binning is index bookkeeping: no gradient flows through it
     bins = binning_lib.bin_gaussians(
-        pre, config.grid_x, config.grid_y, config.max_instances, align=ALIGN)
+        pre_lib.PreprocessOut(*[x.detach() for x in pre]),
+        config.grid_x, config.grid_y, config.max_instances, align=ALIGN)
 
     if config.render_only:
         feats = pre.rgb
     else:
+        # the constant weight/ones column sits last, so the compositor can
+        # leave it out of the backward (const_last_feat)
         feats = [pre.rgb, pre.depths[:, None]]
         if config.num_class > 0:
             if segments is None:
@@ -151,7 +155,8 @@ def rasterize(
 
     chw, T_final, overflow = composite_cuda(
         pre.means2d, pre.conic, pre.opacity, feats, bins,
-        config.width, config.height)
+        config.width, config.height,
+        const_last_feat=not config.render_only)
 
     render = chw[0:3] + T_final[None] * on_dev(bg)[:, None, None]
     out = {

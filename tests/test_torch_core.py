@@ -113,7 +113,7 @@ def test_params_from_numpy_and_npz(rng, tmp_path):
     d["alive"] = np.asarray(jm.aux.alive)
     tm = tgauss.params_from_numpy(d, device="cpu")
     assert (tm.capacity, tm.num_class, tm.max_sh_degree) == (64, 2, 3)
-    np.testing.assert_array_equal(tm.alive.numpy(), d["alive"])
+    np.testing.assert_array_equal(tm.aux.alive.numpy(), d["alive"])
     for k in tgauss.GaussianParams._fields:
         np.testing.assert_array_equal(getattr(tm.params, k).numpy(), d[k])
     assert tgauss.params_from_numpy(d, "cpu", num_class=0).num_class == 0
@@ -134,7 +134,9 @@ def test_params_from_numpy_and_npz(rng, tmp_path):
 
 def test_import_is_jax_free():
     code = ("import sys, gsplat_tpu_torch, gsplat_tpu_torch.renderer, "
-            "gsplat_tpu_torch.ops.composite_ref, gsplat_tpu_torch._kernels\n"
+            "gsplat_tpu_torch.ops.composite_ref, gsplat_tpu_torch._kernels, "
+            "gsplat_tpu_torch.train.trainer, gsplat_tpu_torch.train.schedules, "
+            "gsplat_tpu_torch.models.densify, gsplat_tpu_torch.config\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'gsplat_tpu' or m.startswith('gsplat_tpu.')]\n"
             "assert not bad, bad\n")
@@ -148,7 +150,7 @@ def test_no_port_file_imports_the_jax_package():
     files = [os.path.join(d, f) for d, _, fs in os.walk(PORT)
              for f in fs if f.endswith(".py")]
     files.append(os.path.join(REPO, "chip_smoke.py"))
-    assert len(files) > 10
+    assert len(files) > 20
     for f in files:
         with open(f) as fh:
             hits = pat.findall(fh.read())
@@ -177,11 +179,26 @@ def test_device_defaults_to_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         # a CPU model is not quietly rendered on the CPU by default
         render(torch_helpers.make_camera(32, 32), cpu_model)
+    # the training slice's entry points
+    from gsplat_tpu_torch.config import OptimizationParams
+    from gsplat_tpu_torch.train import trainer
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tgauss.empty_aux(4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tgauss.aux_from_numpy({k: np.zeros(4) for k in
+                               tgauss.GaussianAux._fields})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        trainer.camera_batch(torch_helpers.make_camera(32, 32))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        trainer.make_train_step(RasterizeConfig(width=32, height=32),
+                                OptimizationParams(), 3, None, False,
+                                np.zeros(3, np.float32))
 
 
 def test_kernel_wrappers_validate_inputs():
     from gsplat_tpu_torch.ops.binning import expand
-    from gsplat_tpu_torch.ops.composite_cuda import composite_forward
+    from gsplat_tpu_torch.ops.composite_cuda import (composite_backward,
+                                                     composite_forward)
     off = torch.zeros(3, dtype=torch.int64)
     with pytest.raises(ValueError, match="int32"):
         expand(off, off, off, 128, 2, 1, 1)
@@ -191,3 +208,10 @@ def test_kernel_wrappers_validate_inputs():
                           i32, 1)
     with pytest.raises(ValueError, match="contiguous"):
         composite_forward(torch.zeros((9, 4)).t(), i32, i32, i32, 1)
+    table = torch.zeros((4, 9))
+    from gsplat_tpu_torch.ops.composite_cuda import TILE_PIX
+    packed = torch.zeros((1, 5, TILE_PIX))
+    with pytest.raises(ValueError, match="Cg"):
+        composite_backward(table, i32, i32, i32, 1, packed, packed, 4)
+    with pytest.raises(ValueError, match="d_packed must be"):
+        composite_backward(table, i32, i32, i32, 1, packed, packed[:, :4], 3)

@@ -103,7 +103,8 @@ def _rasterize_cpu(cfg, **kw):
             torch.full((n, 3), 0.1), torch.from_numpy(
                 rng.standard_normal((n, 4)).astype(np.float32)),
             torch.full((n,), 0.5), torch.zeros(n, 16, 3)]
-    args[0].requires_grad_(kw.pop("grad", False))
+    if "means3d" in kw:
+        args[0] = kw.pop("means3d")
     cam = make_camera(32, 32)
     return rasterize(cfg, *args, cam.world_view_transform,
                      cam.full_proj_transform, cam.camera_center,
@@ -114,8 +115,13 @@ def _rasterize_cpu(cfg, **kw):
 def test_forward_only_and_unported_options_raise():
     cfg = RasterizeConfig(width=32, height=32, max_instances=1 << 12)
     assert _rasterize_cpu(cfg)["render"].shape == (3, 32, 32)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        _rasterize_cpu(cfg, grad=True)
+    # an input that requires grad is differentiated, not refused or detached
+    means = torch.from_numpy(np.random.default_rng(74).standard_normal(
+        (16, 3)).astype(np.float32)).requires_grad_(True)
+    out = _rasterize_cpu(cfg, means3d=means)
+    (g,) = torch.autograd.grad(out["render"].sum() + out["depth"].sum(), means)
+    assert g.shape == (16, 3) and torch.isfinite(g).all()
+    assert float(g.abs().max()) > 0.0
     for field, value in (("cull", "exact"), ("max_rows", 1024),
                          ("feat_precision", "bf16"),
                          ("grad_precision", "bf16"), ("mxu_power", True)):

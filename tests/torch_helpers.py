@@ -124,3 +124,37 @@ def assert_images_close(got, want, keys):
     for k in keys:
         np.testing.assert_allclose(got[k], want[k], atol=ATOL[k], rtol=0,
                                    err_msg=k)
+
+
+def model_state_np(rng, n=150, capacity=192, num_class=2, sh_degree=3):
+    """Raw ``GaussianParams`` fields of a model with ``n`` random live
+    gaussians and ``capacity - n`` dead slots (xyz 1e8, opacity logit -30),
+    plus ``alive``, as float32 numpy arrays for both packages."""
+    K = (sh_degree + 1) ** 2
+    S = max(num_class, 1)
+    f32 = np.float32
+    p = dict(
+        xyz=np.full((capacity, 3), 1e8, f32),
+        features_dc=np.zeros((capacity, 1, 3), f32),
+        features_rest=np.zeros((capacity, K - 1, 3), f32),
+        scaling=np.zeros((capacity, 3), f32),
+        rotation=np.tile(np.array([1, 0, 0, 0], f32), (capacity, 1)),
+        opacity=np.full((capacity, 1), -30.0, f32),
+        segment=np.zeros((capacity, S), f32),
+    )
+    p["xyz"][:n] = rng.standard_normal((n, 3)) * 1.2
+    p["features_dc"][:n] = rng.standard_normal((n, 1, 3)) * 0.8
+    p["features_rest"][:n] = rng.standard_normal((n, K - 1, 3)) * 0.2
+    p["scaling"][:n] = rng.standard_normal((n, 3)) * 0.5 - 2.5
+    p["rotation"][:n] = rng.standard_normal((n, 4))
+    p["opacity"][:n] = rng.standard_normal((n, 1)) * 1.5
+    p["segment"][:n] = rng.standard_normal((n, S))
+    p["alive"] = np.arange(capacity) < n
+    return p
+
+
+def tree_np(tree):
+    """A NamedTuple of JAX arrays or torch tensors as a dict of numpy
+    arrays."""
+    return {k: np.asarray(v.detach() if isinstance(v, torch.Tensor) else v)
+            for k, v in tree._asdict().items()}
