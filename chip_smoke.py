@@ -14,7 +14,10 @@ Phases (any failure exits non-zero; nothing is caught):
    ``numpy.random.default_rng(0)``, at bench.py's 1920x1080 camera
    (R = I, T = [0, 0.6, 4.2], FoVx 62 degrees);
 3. K3 (expansion): the kernel against its plain version at the scene's real
-   binning inputs — tile ids, gaussian ids and tile starts bit-equal;
+   binning inputs — tile ids, gaussian ids and tile starts bit-equal; (a)
+   its extras form K3x at the scene's real exact-cull stage-A sources — rows,
+   gaussian ids and 8 extras bit-equal — and exact-cull ``bin_gaussians``
+   bit-equal field by field to the same function on the plain versions;
 4. K1 (forward composite): the kernel against its plain version on that
    binning — every channel within the JAX tests' tolerances; K1 built with
    the other ``--fmad`` setting, compared here and timed beside the main
@@ -32,17 +35,30 @@ Phases (any failure exits non-zero; nothing is caught):
    launch counters zeroed just before — no overflow, finite outputs, K3
    and K1 launched — then ms/frame over warmed renders, device busy time
    from a profiler window, and per-stage times, all with CUDA events;
+   Then (b): ``rasterize`` with ``cull="exact"`` against ``cull="none"``
+   at the asset, images within rtol 1e-5 / atol 1e-6 (1e-5 depth) and the
+   gradients of one loss within rtol 3e-3 / atol 1e-3;
 8. the training path: the asset in a model of 524,288 slots, targets
    rendered from the unperturbed asset, parameters perturbed by seeded
    noise; ten steps of ``train.trainer.make_train_step`` (SH degree 3,
    num_class=2, segment loss, depth loss "L1_loss") with the launch counters
    zeroed just before — K3, K1, K2 and K4 once per step, no overflow,
    falling loss, finite state — then ms/step, device busy time per step,
-   one ``densify_and_prune`` whose clones and splits fire, and one more
-   step.
+   the step with ``cull="exact"`` and without alternated from one state
+   (ms/step, device busy, launches per step), one ``densify_and_prune``
+   whose clones and splits fire, and one more step;
+9. (c) ``train.trainer.Trainer`` at 1080p with exact cull: the perturbed
+   asset in 524,288 slots on four cameras near bench.py's, 40 iterations
+   with the counters zeroed just before — K3x, K3, K1, K2 and K4 once per
+   step, densification fires, an overflow only with a regrow after it, the
+   loss falls before the first densification, the PLY, ``eval_log.jsonl``
+   and a checkpoint that restores to equal tensors; (d) the command line
+   ``scripts.train.main`` in process with ``--cull exact`` on a small
+   NeRFstudio scene written with the port — its files written and K3x
+   launched.
 
-The last three lines are the kernel table as one JSON object, the card
-line, and ``{"ok": true, "device": {...}}``.  Without a usable card the
+The last three lines are the kernel table as one JSON object (K1 to K4 and
+K3x), the card line, and ``{"ok": true, "device": {...}}``.  Without a usable card the
 script exits 2 and prints no result.
 """
 import ctypes
@@ -347,6 +363,184 @@ def phase_k2(torch, comp, card, k1_args, packed, P, C, tested, composited):
             "bound_ms": bound, "bound_by": by, "library_ms": None}
 
 
+def bits_equal(torch, a, b):
+    """Bit-for-bit equality of two tensors of one dtype (NaN patterns
+    included)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return bool((a == b).all())
+
+
+def phase_k3x(torch, card, bin_lib, pre, gx, gy, cap):
+    """(a) K3's extras form at the asset's real stage-A sources, bit-equal
+    to ``expand_plain``; then exact-cull ``bin_gaussians`` field by field
+    against the same function with K3 and K3x swapped for their plain
+    versions."""
+    t0 = time.perf_counter()
+    rs = bin_lib.row_sources(pre, gx, gy, 128)
+    IR = bin_lib.row_capacity(cap)
+    rw_bits = bin_lib._meta_layout(gx, gx * gy, 128)[1]
+    S = rs.offsets.shape[0]
+    args = (rs.offsets, rs.meta, rs.gid, IR, rw_bits, gx, gy)
+    out_k = bin_lib.expand(*args, extras=rs.extras)
+    out_p = bin_lib.expand_plain(*args, extras=rs.extras)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("ty", "gid", "extras"), out_k, out_p):
+        check(bits_equal(torch, a, b),
+              f"K3x: {name} differs from the plain version")
+    rows_total = int(rs.rows_total)
+    check(0 < rows_total <= IR, f"K3x: {rows_total} rows over {IR} slots")
+    err = max(float((out_k[2] - out_p[2]).abs().max()),
+              float((out_k[0] - out_p[0]).abs().max()),
+              float((out_k[1] - out_p[1]).abs().max()))
+
+    culled = bin_lib.bin_gaussians(pre, gx, gy, cap, cull="exact")
+    kernel_expand = bin_lib.expand
+
+    def plain_expand(offsets, meta, gid, I, rw_bits, grid_x, num_tiles,
+                     extras=()):
+        return bin_lib.expand_plain(offsets, meta, gid, I, rw_bits, grid_x,
+                                    num_tiles, extras)
+
+    bin_lib.expand = plain_expand
+    try:
+        culled_p = bin_lib.bin_gaussians(pre, gx, gy, cap, cull="exact")
+    finally:
+        bin_lib.expand = kernel_expand
+    for f in culled._fields:
+        check(torch.equal(getattr(culled, f), getattr(culled_p, f)),
+              f"K3x: exact-cull binning field {f} differs from the plain "
+              "version")
+    check(not bool(culled.overflow), "K3x: exact-cull binning overflowed")
+    full = bin_lib.bin_gaussians(pre, gx, gy, cap)
+    print(f"K3x expand (extras): ty, gid and 8 extras bit-equal to the plain "
+          f"version on {IR} row slots ({S} sources, rows_total "
+          f"{rows_total}, I_R {IR}); exact-cull binning bit-equal field by "
+          f"field; num_rendered / num_padded {int(culled.num_rendered)} / "
+          f"{int(culled.num_padded)} with the cull, "
+          f"{int(full.num_rendered)} / {int(full.num_padded)} without")
+    ms = event_ms(torch, lambda: bin_lib.expand(*args, extras=rs.extras), 20)
+    plain_ms = event_ms(torch, lambda: bin_lib.expand_plain(
+        *args, extras=rs.extras), 10)
+    cull_ms = event_ms(torch, lambda: bin_lib.bin_gaussians(
+        pre, gx, gy, cap, cull="exact"), 10)
+    none_ms = event_ms(torch, lambda: bin_lib.bin_gaussians(pre, gx, gy, cap),
+                       10)
+    # each source read once (offsets, meta, gid, 8 extras), each slot
+    # written once (ty, gid, 8 extras); a binary search and the decode per
+    # slot
+    nbytes = (3 + 8) * 4 * S + (2 + 8) * 4 * IR
+    nops = IR * (4 * math.ceil(math.log2(S + 1)) + 12)
+    bound, by = bound_ms(nbytes, nops)
+    print(f"K3x [{card}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; bound "
+          f"{bound:.5f} ms ({nbytes} bytes, {nops} ops); bin_gaussians "
+          f"exact {cull_ms:.4f} ms, none {none_ms:.4f} ms; phase "
+          f"{time.perf_counter() - t0:.1f} s")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": None}
+
+
+def phase_cull_render(torch, card, model, cam, cap):
+    """(b) ``rasterize`` with ``cull="exact"`` against ``cull="none"`` at
+    the asset: images within the JAX test's tolerance
+    (tests/test_rasterize_parity.py:145-191), and the gradients of the same
+    loss within rtol 3e-3, atol 1e-3."""
+    from gsplat_tpu_torch.core import transforms as T
+    from gsplat_tpu_torch.ops.rasterize import RasterizeConfig, rasterize
+    t0 = time.perf_counter()
+    dev = model.device
+    p = model.params
+    inputs = [p.xyz, T.scaling_activation(p.scaling), p.rotation,
+              T.opacity_activation(p.opacity[:, 0]), model.get_features,
+              T.segment_activation(p.segment)]
+    names = ["means3d", "scales", "rotations", "opacities", "shs",
+             "segments"]
+    bg = torch.tensor([0.15, 0.3, 0.1], device=dev)
+
+    def run(cull):
+        cfg = RasterizeConfig(width=W, height=H, sh_degree=3,
+                              num_class=NUM_CLASS, max_instances=cap,
+                              cull=cull)
+        leaves = [x.detach().clone().requires_grad_(True) for x in inputs]
+        out = rasterize(cfg, *leaves[:5], cam.world_view_transform,
+                        cam.full_proj_transform, cam.camera_center,
+                        cam.tan_fovx, cam.tan_fovy, bg, segments=leaves[5],
+                        device=dev)
+        loss = ((out["render"] ** 2).sum() + out["depth"].sum()
+                + (out["alpha"] ** 2).sum())
+        grads = torch.autograd.grad(loss, leaves)
+        return {k: v.detach() if torch.is_tensor(v) else v
+                for k, v in out.items()}, grads
+
+    out0, g0 = run("none")
+    out1, g1 = run("exact")
+    torch.cuda.synchronize()
+    check(not bool(out0["overflow"]) and not bool(out1["overflow"]),
+          "cull render: overflow")
+    diffs = {}
+    for k, atol in (("render", 1e-6), ("T_final", 1e-6), ("depth", 1e-5),
+                    ("alpha", 1e-6), ("segment", 1e-6)):
+        d = (out1[k] - out0[k]).abs()
+        diffs[k] = float(d.max())
+        check(bool((d <= atol + 1e-5 * out0[k].abs()).all()),
+              f"cull render: {k} differs beyond rtol 1e-5, atol {atol}")
+    gerr = {}
+    for n, a, b in zip(names, g1, g0):
+        d = (a - b).abs()
+        gerr[n] = float(d.max())
+        check(bool((d <= 1e-3 + 3e-3 * b.abs()).all()),
+              f"cull render: gradient of {n} beyond rtol 3e-3, atol 1e-3")
+    print(f"cull render {W}x{H}: num_rendered {int(out1['num_rendered'])} "
+          f"with exact cull, {int(out0['num_rendered'])} without; max |diff| "
+          f"of the images {json.dumps(diffs)}; of the gradients "
+          f"{json.dumps(gerr)}; phase {time.perf_counter() - t0:.1f} s")
+
+
+def alternate_cull_steps(torch, np, card, steps, state, batch, lrs):
+    """Train steps with ``cull="none"`` and ``cull="exact"`` from the same
+    state, alternated none, exact, exact, none: ms/step (CUDA events per
+    step), device busy ms/step (profiler), launches per step."""
+    from gsplat_tpu_torch import _kernels
+    t0 = time.perf_counter()
+    times = {"none": [], "exact": []}
+    for cull in ("none", "exact", "exact", "none"):
+        steps[cull](*state, batch, lrs)          # warm the allocator
+        for _ in range(4):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = steps[cull](*state, batch, lrs)
+            b.record()
+            torch.cuda.synchronize()
+            check(not bool(out[3]["overflow"]), f"cull {cull}: overflow")
+            times[cull].append(a.elapsed_time(b))
+    res = {}
+    for cull in ("none", "exact"):
+        torch.cuda.synchronize()
+        _kernels.reset_launch_counts()
+        m = steps[cull](*state, batch, lrs)[3]
+        torch.cuda.synchronize()
+        launches = dict(_kernels.launch_counts)
+        med = float(np.median(times[cull]))
+        busy = profile_window(torch, lambda: steps[cull](*state, batch, lrs),
+                              5, f"step ({cull})", med, card, top=6)
+        res[cull] = med
+        print(f"train step cull={cull} [{card}]: median {med:.3f} ms/step "
+              f"over {len(times[cull])} steps (p10 "
+              f"{np.percentile(times[cull], 10):.3f}, p90 "
+              f"{np.percentile(times[cull], 90):.3f}), device busy "
+              f"{'not measured' if busy is None else f'{busy:.3f}'} "
+              f"ms/step, launches per step {json.dumps(launches)}, "
+              f"num_rendered {int(m['num_rendered'])}, num_padded "
+              f"{int(m['num_padded'])}")
+    check(launches["expand_extras"] == 1 and launches["expand"] == 1,
+          "cull exact step: K3x and K3 not launched once each")
+    print(f"cull steps phase: {time.perf_counter() - t0:.1f} s")
+    return res
+
+
 TRAIN_CAPACITY = 524288
 TRAIN_STEPS = 10
 # The reference's inverse-depth L1 turns a pixel no gaussian touches
@@ -357,29 +551,49 @@ TRAIN_STEPS = 10
 TRAIN_LAMBDA_DEPTH = 1e-7
 
 
-def phase_train(torch, np, card, cam, model, cap):
-    """The training path through ``make_train_step`` at full width: the
-    asset in a model of TRAIN_CAPACITY slots, targets rendered from the
-    unperturbed asset, parameters perturbed by seeded noise, TRAIN_STEPS Adam
-    steps, one ``densify_and_prune``, one more step.  Returns the launch
-    counts of the steps and the step count."""
-    from gsplat_tpu_torch import _kernels, renderer
-    from gsplat_tpu_torch.config import OptimizationParams
-    from gsplat_tpu_torch.models import adam, densify
-    from gsplat_tpu_torch.models.gaussians import GaussianModel
-    from gsplat_tpu_torch.ops.rasterize import RasterizeConfig
-    from gsplat_tpu_torch.train import schedules, trainer
+TRAIN_NOISE = dict(xyz=0.005, features_dc=0.05, features_rest=0.01,
+                   scaling=0.05, rotation=0.02, opacity=0.2, segment=0.3)
 
-    dev = model.device
+
+def train_model(torch, model):
+    """The asset in a model of TRAIN_CAPACITY slots, Adam state set up."""
+    from gsplat_tpu_torch.models.gaussians import GaussianModel
     P = model.capacity
     tm = GaussianModel(3, num_class=NUM_CLASS, capacity=TRAIN_CAPACITY,
-                       device=dev)
+                       device=model.device)
     for dst, src in zip(tm.params, model.params):
         dst[:P] = src
     tm.aux.alive[:P] = True
     tm.active_sh_degree = 3
     tm.training_setup()
+    return tm
 
+
+def perturbed(torch, params, P, gen):
+    """``params`` with its first P rows moved by seeded noise."""
+    return params._replace(**{
+        k: torch.cat([v[:P] + TRAIN_NOISE[k] * torch.randn(
+            v[:P].shape, generator=gen, device=v.device), v[P:]])
+        for k, v in params._asdict().items()})
+
+
+def phase_train(torch, np, card, cam, model, cap):
+    """The training path through ``make_train_step`` at full width: the
+    asset in a model of TRAIN_CAPACITY slots, targets rendered from the
+    unperturbed asset, parameters perturbed by seeded noise, TRAIN_STEPS Adam
+    steps, the exact-cull and plain steps alternated from one state, one
+    ``densify_and_prune``, one more step.  Returns the launch counts of the
+    steps, the step count and the densification threshold and extent that
+    fired."""
+    from gsplat_tpu_torch import _kernels, renderer
+    from gsplat_tpu_torch.config import OptimizationParams
+    from gsplat_tpu_torch.models import adam, densify
+    from gsplat_tpu_torch.ops.rasterize import RasterizeConfig
+    from gsplat_tpu_torch.train import schedules, trainer
+
+    dev = model.device
+    P = model.capacity
+    tm = train_model(torch, model)
     target = renderer.render(cam, tm, max_instances=cap, device=dev)
     check(not bool(target["overflow"]), "train: target render overflowed")
     batch = trainer.camera_batch(
@@ -390,12 +604,7 @@ def phase_train(torch, np, card, cam, model, cap):
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(7)
-    noise = dict(xyz=0.005, features_dc=0.05, features_rest=0.01,
-                 scaling=0.05, rotation=0.02, opacity=0.2, segment=0.3)
-    params = tm.params._replace(**{
-        k: torch.cat([v[:P] + noise[k] * torch.randn(
-            v[:P].shape, generator=gen, device=dev), v[P:]])
-        for k, v in tm.params._asdict().items()})
+    params = perturbed(torch, tm.params, P, gen)
     opt_state, aux = tm.opt_state, tm.aux
 
     opt = OptimizationParams()
@@ -421,7 +630,9 @@ def phase_train(torch, np, card, cam, model, cap):
         history.append({k: float(v) for k, v in m.items()})
     launches = dict(_kernels.launch_counts)
     print(f"train: launches over {TRAIN_STEPS} steps {json.dumps(launches)}")
-    check(all(v == TRAIN_STEPS for v in launches.values()),
+    check(all(launches[k] == TRAIN_STEPS for k in (
+        "expand", "composite_forward", "composite_backward", "segment_sum"))
+          and launches["expand_extras"] == 0,
           "train: K3, K1, K2 and K4 did not each launch once per step")
     for h in (history[0], history[-1]):
         print("train: step metrics " + json.dumps(h))
@@ -489,6 +700,16 @@ def phase_train(torch, np, card, cam, model, cap):
     print(f"train stages [{card}] (median of 5 after one warm-up, ms): "
           + ", ".join(f"{k} {np.median(v[1:]):.3f}" for k, v in stage.items()))
 
+    # the same state through the exact-cull step and the plain one
+    cfg_exact = RasterizeConfig(width=W, height=H, sh_degree=3,
+                                num_class=NUM_CLASS, max_instances=cap,
+                                cull="exact")
+    steps = {"none": step, "exact": trainer.make_train_step(
+        cfg_exact, opt, 3, "L1_loss", True, torch.zeros(3, device=dev),
+        device=dev)}
+    alternate_cull_steps(torch, np, card, steps, (params, opt_state, aux),
+                         batch, lr_fn(TRAIN_STEPS))
+
     # one densification with a threshold that fires: the 90th percentile
     # of the accumulated gradient norms, and the clone/split boundary at
     # the median scale of the candidates so that both branches fire
@@ -521,7 +742,289 @@ def phase_train(torch, np, card, cam, model, cap):
     print(f"train: step after densification: loss {float(m['loss']):.6f}, "
           f"num_rendered {int(m['num_rendered'])}, n_visible "
           f"{int(m['n_visible'])}")
-    return launches, TRAIN_STEPS
+    return launches, TRAIN_STEPS, thr, extent
+
+
+TRAINER_ITERS = 40
+CULL_KERNELS = ("expand_extras", "expand", "composite_forward",
+                "composite_backward", "segment_sum")
+
+
+class MemoryScene:
+    """What ``Trainer`` reads of a scene, held in memory: cameras with
+    their targets, the extent, and ``save`` (the PLY of an iteration)."""
+
+    def __init__(self, model, train, test, extent, model_path):
+        self.gaussians = model
+        self.train, self.test = train, test
+        self.cameras_extent = extent
+        self.model_path = model_path
+
+    def getTrainCameras(self):
+        return self.train
+
+    def getTestCameras(self):
+        return self.test
+
+    def save(self, iteration):
+        self.gaussians.save_ply(os.path.join(
+            self.model_path, "point_cloud", f"iteration_{iteration}",
+            "point_cloud.ply"))
+
+
+def target_camera(torch, np, renderer, model, T, name, uid):
+    """A Camera at bench.py's pose moved to ``T``, with its image, depth and
+    segment labels rendered from ``model``."""
+    from gsplat_tpu_torch.core.cameras import Camera
+    fovx = math.radians(62.0)
+    fovy = 2 * math.atan(math.tan(fovx / 2) * H / W)
+    cam = Camera(colmap_id=uid, R=np.eye(3), T=np.array(T), FoVx=fovx,
+                 FoVy=fovy, image=np.zeros((3, H, W), np.float32),
+                 image_name=name, uid=uid)
+    out = renderer.render(cam, model, device=model.device)
+    check(not bool(out["overflow"]), f"{name}: target render overflowed")
+    cam.image = out["render"].clamp(0, 1).cpu().numpy()
+    cam.depth = out["depth_raw"][None].cpu().numpy()
+    cam.segment = torch.argmax(out["segment"], dim=0).to(
+        torch.int32).cpu().numpy()
+    return cam
+
+
+def phase_trainer(torch, np, card, model, thr, extent):
+    """(c) ``Trainer`` at 1080p with exact cull: the asset in
+    TRAIN_CAPACITY slots, perturbed, on four cameras near bench.py's with
+    targets from the unperturbed asset (one more as the test split);
+    autosized capacity; densification at 20 and 30 (threshold and extent
+    from the training phase), an opacity reset at 30, test, save and
+    checkpoint at the last iteration.  Returns the launch counts of the
+    run."""
+    import tempfile
+
+    from gsplat_tpu_torch import _kernels, renderer
+    from gsplat_tpu_torch.config import OptimizationParams
+    from gsplat_tpu_torch.models.gaussians import GaussianModel
+    from gsplat_tpu_torch.train.trainer import Trainer
+    t0 = time.perf_counter()
+    dev = model.device
+    P = model.capacity
+    tm = train_model(torch, model)
+    poses = [[0.0, 0.6, 4.2], [0.15, 0.6, 4.2], [-0.15, 0.55, 4.25],
+             [0.0, 0.7, 4.1], [0.08, 0.62, 4.15]]
+    cams = [target_camera(torch, np, renderer, tm, T, f"view{i}", i)
+            for i, T in enumerate(poses)]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    tm.params = perturbed(torch, tm.params, P, gen)
+    tm.training_setup()
+    opt = OptimizationParams()
+    opt.lambda_depth = TRAIN_LAMBDA_DEPTH
+    opt.densify_from_iter = 10
+    opt.densification_interval = 10
+    opt.densify_until_iter = TRAINER_ITERS
+    opt.opacity_reset_interval = 30
+    opt.densify_grad_threshold = thr
+    t_setup = time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        scene = MemoryScene(tm, cams[:4], cams[4:], extent, out_dir)
+        tr = Trainer(tm, scene, opt, depth_loss_choice="L1_loss",
+                     use_seg=True, cull="exact", max_instances=0,
+                     model_path=out_dir)
+        rows, densified = [], []
+
+        def record(it, metrics, trainer):
+            rows.append({"it": it, "t": time.perf_counter(),
+                         "loss": float(metrics["loss"]),
+                         "overflow": bool(metrics["overflow"]),
+                         "num_rendered": int(metrics["num_rendered"]),
+                         "num_padded": int(metrics["num_padded"]),
+                         "capacity": trainer.max_instances,
+                         "launches": dict(_kernels.launch_counts)})
+            d = trainer.last_densify
+            if d is not None and d not in densified:
+                densified.append(dict(d))
+
+        torch.cuda.synchronize()
+        _kernels.reset_launch_counts()
+        t1 = time.perf_counter()
+        tr.train(TRAINER_ITERS, log_every=1, callback=record,
+                 test_iterations={TRAINER_ITERS},
+                 save_iterations={TRAINER_ITERS},
+                 checkpoint_iterations={TRAINER_ITERS})
+        torch.cuda.synchronize()
+        t_train = time.perf_counter() - t1
+        launches = dict(_kernels.launch_counts)
+        check(len(rows) == TRAINER_ITERS, "trainer: not every step logged")
+        prev = {k: 0 for k in CULL_KERNELS}
+        for r in rows:
+            check(all(r["launches"][k] - prev[k] == 1 for k in CULL_KERNELS),
+                  f"trainer: step {r['it']} did not launch K3x, K3, K1, K2 "
+                  f"and K4 once each ({r['launches']})")
+            prev = r["launches"]
+        for i, r in enumerate(rows):
+            if r["overflow"]:
+                later = [q["capacity"] for q in rows[i + 1:]]
+                check(later and max(later) > r["capacity"],
+                      f"trainer: overflow at {r['it']} not followed by a "
+                      "regrow")
+        losses = [r["loss"] for r in rows]
+        check(all(math.isfinite(x) for x in losses), "trainer: non-finite "
+              "loss")
+        # densification at 20 moves and splits gaussians and the opacity
+        # reset at 30 darkens every one: the loss is held before them
+        before = float(np.mean(losses[15:20]))
+        check(before < float(np.mean(losses[:5])),
+              "trainer: the loss did not fall before the densification")
+        check(any(d["n_cloned"] + d["n_split"] > 0 for d in densified),
+              f"trainer: densify did not fire ({densified})")
+        ply = os.path.join(out_dir, "point_cloud", f"iteration_"
+                           f"{TRAINER_ITERS}", "point_cloud.ply")
+        check(os.path.exists(ply), "trainer: no PLY")
+        with open(os.path.join(out_dir, "eval_log.jsonl")) as f:
+            evals = [json.loads(x) for x in f]
+        check([e["split"] for e in evals] == ["test", "train"],
+              "trainer: eval_log.jsonl")
+        t2 = time.perf_counter()
+        back = GaussianModel(3, num_class=NUM_CLASS, capacity=1, device=dev)
+        ck = os.path.join(out_dir, f"chkpnt{TRAINER_ITERS}.npz")
+        check(back.restore_checkpoint(ck) == TRAINER_ITERS,
+              "trainer: checkpoint iteration")
+        for name, a, b in (("params", back.params, tm.params),
+                           ("aux", back.aux, tm.aux),
+                           ("mu", back.opt_state.mu, tm.opt_state.mu),
+                           ("nu", back.opt_state.nu, tm.opt_state.nu)):
+            check(all(torch.equal(x, y) for x, y in zip(a, b)),
+                  f"trainer: checkpoint {name} differs")
+        check(int(back.opt_state.count) == int(tm.opt_state.count),
+              "trainer: checkpoint step count")
+        t_restore = time.perf_counter() - t2
+        ply_mb = os.path.getsize(ply) / 1e6
+        ck_mb = os.path.getsize(ck) / 1e6
+    caps = sorted({r["capacity"] for r in rows})
+    gaps = np.diff([r["t"] for r in rows]) * 1e3
+    print(f"trainer {W}x{H} [{card}]: {TRAINER_ITERS} iterations in "
+          f"{t_train:.1f} s with the test renders, save and checkpoint; "
+          f"median {np.median(gaps):.3f} ms/iteration between the "
+          f"callbacks (p10 {np.percentile(gaps, 10):.3f}, p90 "
+          f"{np.percentile(gaps, 90):.3f}; each callback reads the loss "
+          f"back); "
+          f"capacities {caps}; overflowing steps "
+          f"{sum(r['overflow'] for r in rows)}; num_rendered "
+          f"{rows[0]['num_rendered']} -> {rows[-1]['num_rendered']}, "
+          f"num_padded {rows[0]['num_padded']} -> {rows[-1]['num_padded']}; "
+          f"loss {np.mean(losses[:5]):.6f} (first 5) -> {before:.6f} "
+          f"(16-20, before the densification), {np.mean(losses[25:30]):.6f}"
+          f" (26-30, before the reset), {losses[-1]:.6f} (last); densify "
+          f"{json.dumps(densified)}; eval {json.dumps(evals)}; launches "
+          f"{json.dumps(launches)}; PLY {ply_mb:.1f} MB, checkpoint "
+          f"{ck_mb:.1f} MB, restored equal in {t_restore:.1f} s; setup "
+          f"{t_setup:.1f} s, phase {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def write_scene(torch, np, renderer, out_dir, n=400, n_cams=8, width=128,
+                height=96, device="cuda"):
+    """A NeRFstudio scene written with the port: a seeded cloud rendered by
+    ``renderer.render`` from cameras orbiting the origin, its images as
+    8-bit PNGs, ``transforms.json``, and the cloud as ``points3d.ply``
+    through ``readers.store_ply``."""
+    from PIL import Image
+
+    from gsplat_tpu_torch.core import sh as sh_lib
+    from gsplat_tpu_torch.core.cameras import Camera, fov2focal
+    from gsplat_tpu_torch.data.readers import store_ply
+    from gsplat_tpu_torch.models.gaussians import params_from_numpy
+    rng = np.random.default_rng(5)
+    pts = rng.standard_normal((n, 3)).astype(np.float32) * 0.8
+    cols = rng.uniform(0.1, 0.9, (n, 3)).astype(np.float32)
+    f_dc = np.zeros((n, 1, 3), np.float32)
+    f_dc[:, 0] = sh_lib.rgb_to_sh(cols)
+    model = params_from_numpy(dict(
+        xyz=pts, features_dc=f_dc,
+        features_rest=np.zeros((n, 15, 3), np.float32),
+        scaling=rng.standard_normal((n, 3)).astype(np.float32) * 0.3 - 2.2,
+        rotation=rng.standard_normal((n, 4)).astype(np.float32),
+        opacity=rng.uniform(0.5, 2.5, (n, 1)).astype(np.float32),
+        segment=np.zeros((n, NUM_CLASS), np.float32)), device=device)
+    os.makedirs(os.path.join(out_dir, "images"), exist_ok=True)
+    fovx = math.radians(60.0)
+    fovy = 2 * math.atan(math.tan(fovx / 2) * height / width)
+    frames = []
+    for i in range(n_cams):
+        ang = 2 * math.pi * i / n_cams
+        campos = np.array([4 * math.sin(ang), 0.6, 4 * math.cos(ang)])
+        fwd = -campos / np.linalg.norm(campos)
+        right = np.cross(fwd, [0.0, 1.0, 0.0])
+        right /= np.linalg.norm(right)
+        up = np.cross(fwd, right)
+        up /= np.linalg.norm(up)
+        r_w2c = np.stack([right, up, fwd])
+        t_w2c = -r_w2c @ campos
+        cam = Camera(colmap_id=i, R=r_w2c.T, T=t_w2c, FoVx=fovx, FoVy=fovy,
+                     image=np.zeros((3, height, width), np.float32),
+                     image_name=f"frame_{i:03d}", uid=i)
+        img = renderer.render(cam, model, device=device)["render"]
+        img = (img.clamp(0, 1).permute(1, 2, 0).cpu().numpy() * 255).astype(
+            np.uint8)
+        Image.fromarray(img).save(
+            os.path.join(out_dir, "images", f"frame_{i:03d}.png"))
+        w2c = np.eye(4)
+        w2c[:3, :3], w2c[:3, 3] = r_w2c, t_w2c
+        c2w = np.linalg.inv(w2c)
+        c2w[:, 1:3] *= -1          # the readers flip NeRF axes back
+        frames.append({"file_path": f"images/frame_{i:03d}.png",
+                       "transform_matrix": c2w.tolist()})
+    with open(os.path.join(out_dir, "transforms.json"), "w") as f:
+        json.dump({"fl_x": fov2focal(fovx, width),
+                   "fl_y": fov2focal(fovy, height), "w": width, "h": height,
+                   "frames": frames}, f)
+    store_ply(os.path.join(out_dir, "points3d.ply"), pts,
+              (cols * 255).astype(np.uint8))
+
+
+def phase_cli(torch, np, card):
+    """(d) The command line, in process, on a NeRFstudio scene written with
+    the port: ``--cull exact --disable_gui_server`` on the card.  Returns
+    its launch counts."""
+    import tempfile
+
+    from gsplat_tpu_torch import _kernels, renderer
+    from gsplat_tpu_torch.scripts import train as train_cli
+    t0 = time.perf_counter()
+    iters = 30
+    with tempfile.TemporaryDirectory() as tmp:
+        scene_dir = os.path.join(tmp, "scene")
+        out = os.path.join(tmp, "out")
+        write_scene(torch, np, renderer, scene_dir)
+        torch.cuda.synchronize()
+        _kernels.reset_launch_counts()
+        train_cli.main([
+            "-s", scene_dir, "-m", out, "--cull", "exact",
+            "--disable_gui_server", "--iterations_override", str(iters),
+            "--test_iterations", str(iters), "--densify_from_iter", "10",
+            "--densification_interval", "10",
+            "--densify_grad_threshold", "2e-5", "--eval"])
+        torch.cuda.synchronize()
+        launches = dict(_kernels.launch_counts)
+        for f in ("cfg_args", "train_log.jsonl", "eval_log.jsonl",
+                  "cameras.json", "input.ply",
+                  os.path.join("point_cloud", f"iteration_{iters}",
+                               "point_cloud.ply")):
+            check(os.path.exists(os.path.join(out, f)), f"cli: no {f}")
+        with open(os.path.join(out, "train_log.jsonl")) as f:
+            log = [json.loads(x) for x in f]
+        with open(os.path.join(out, "eval_log.jsonl")) as f:
+            evals = [json.loads(x) for x in f]
+    check(launches["expand_extras"] >= iters,
+          f"cli: K3x launched {launches['expand_extras']} times")
+    check(all(launches[k] > 0 for k in CULL_KERNELS), "cli: a kernel of the "
+          "path did not launch")
+    check(all(math.isfinite(r["loss"]) for r in log), "cli: non-finite loss")
+    print(f"cli [{card}]: {iters} iterations on a 128x96 NeRFstudio scene "
+          f"(8 cameras, 400 gaussians), launches {json.dumps(launches)}; "
+          f"train_log {json.dumps(log)}; eval {json.dumps(evals)}; phase "
+          f"{time.perf_counter() - t0:.1f} s")
+    return launches
 
 
 def main():
@@ -613,6 +1116,9 @@ def main():
     print(f"K3 expand: bit-equal to its plain version on {cap} slots "
           f"({S} sources, {int(bins.num_rendered)} instances, "
           f"{int(bins.num_padded)} padded)")
+
+    # ---- 3a. K3x (the extras form) and exact-cull binning -----------------
+    k3x = phase_k3x(torch, card, bin_lib, pre, gx, gy, cap)
 
     # ---- 4. K1 against its plain version ----------------------------------
     feats = torch.cat([pre.rgb, pre.depths[:, None],
@@ -753,9 +1259,16 @@ def main():
     profile_window(torch, lambda: renderer.render(cam, model, device=dev),
                    10, "frame", ms_frame, card)
 
+    # ---- 7b. exact-cull render against the plain one -----------------------
+    phase_cull_render(torch, card, model, cam, cap)
+
     # ---- 8. the training path ---------------------------------------------
-    train_launches, train_steps = phase_train(torch, np, card, cam, model,
-                                              cap)
+    train_launches, train_steps, thr, extent = phase_train(
+        torch, np, card, cam, model, cap)
+
+    # ---- 9. the Trainer at 1080p with exact cull, and the command line -----
+    trainer_launches = phase_trainer(torch, np, card, model, thr, extent)
+    phase_cli(torch, np, card)
 
     # per-stage times on the main path's own inputs
     tile_k, gid_k = bin_lib.expand(*k3_args)
@@ -830,11 +1343,16 @@ def main():
          "source": "gsplat_tpu_torch/csrc/segsum.cu",
          "replaces": "gsplat_tpu/ops/segment_reduce.py:38",
          "launches": train_launches["segment_sum"], **k4},
+        {"name": "K3 expand (extras)", "route": "cuda",
+         "source": "gsplat_tpu_torch/csrc/expand.cu",
+         "replaces": "gsplat_tpu/ops/binning.py:84 (n_extra > 0)",
+         "launches": trainer_launches["expand_extras"], **k3x},
     ]
     print(f"launches: K3 and K1 from the one render, K2 and K4 from the "
           f"{train_steps} training steps (K3 and K1 also ran "
           f"{train_launches['expand']} and "
-          f"{train_launches['composite_forward']} times there)")
+          f"{train_launches['composite_forward']} times there), K3x from "
+          f"the {TRAINER_ITERS} Trainer iterations with exact cull")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

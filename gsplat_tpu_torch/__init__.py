@@ -8,19 +8,23 @@ loaded with ``ctypes`` (``_kernels.py``).
 
 This package imports neither ``jax`` nor anything of ``gsplat_tpu``.
 
-Ported so far (the serving path, ``renderer.render``, and the training
-step, ``train.trainer.make_train_step``):
+Ported so far (the serving path, ``renderer.render``; the training step,
+``train.trainer.make_train_step``; and the training command line,
+``scripts/train.py`` over ``train.trainer.Trainer``):
 
-- ``core``   : cameras (numpy), quaternion/covariance math, SH evaluation
-- ``data``   : PLY reading
-- ``models`` : ``GaussianParams`` / ``GaussianAux`` / ``GaussianModel``,
-               per-group Adam, densification (clone / split / prune)
-- ``ops``    : preprocess, binning (expansion kernel K3), composite
-               (forward kernel K1, backward kernel K2), the segment sum
-               (kernel K4) behind the gather's adjoint, differentiable
-               rasterize, KNN scale init, the O(P*H*W) oracle
-- ``train``  : losses, learning-rate schedules, the train step
-- ``config`` : ``OptimizationParams``
+- ``core``    : cameras (numpy), quaternion/covariance math, SH evaluation
+- ``data``    : PLY reading and writing, COLMAP parsers, the COLMAP /
+                Blender / NeRFstudio readers, ``Scene`` and camera loading
+- ``models``  : ``GaussianParams`` / ``GaussianAux`` / ``GaussianModel``
+                (PLY export, checkpoints), per-group Adam, densification
+- ``ops``     : preprocess, binning (expansion kernel K3 and its extras
+                form K3x for exact culling), composite (forward kernel K1,
+                backward kernel K2), the segment sum (kernel K4) behind the
+                gather's adjoint, differentiable rasterize, KNN scale init,
+                the O(P*H*W) oracle
+- ``train``   : losses, learning-rate schedules, the train step, ``Trainer``
+- ``config``  : the argparse parameter groups
+- ``scripts`` : ``train``
 
 Entry points run on the card (``device="cuda"``) unless the caller asks for
 the CPU, where every kernel wrapper uses its plain PyTorch version.

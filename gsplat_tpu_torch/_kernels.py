@@ -45,8 +45,8 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
-launch_counts = {"expand": 0, "composite_forward": 0, "composite_backward": 0,
-                 "segment_sum": 0}
+launch_counts = {"expand": 0, "expand_extras": 0, "composite_forward": 0,
+                 "composite_backward": 0, "segment_sum": 0}
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
@@ -54,6 +54,10 @@ SIGNATURES = {
     # offsets, meta, gid_src, S, I, rw_bits, grid_x, num_tiles,
     # tile_out, gid_out, stream
     "gsplat_expand": (_VP, _VP, _VP, _I, _I, _I, _I, _I, _VP, _VP, _VP),
+    # offsets, meta, gid_src, extras, S, I, rw_bits, grid_x, num_tiles,
+    # n_extra, tile_out, gid_out, extras_out, stream
+    "gsplat_expand_extras": (_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
+                             _VP, _VP, _VP, _VP),
     # table, P, C, gauss_id, starts, counts, num_tiles, grid_x, tile_x,
     # tile_y, out, stream
     "gsplat_composite_forward": (_VP, _I, _I, _VP, _VP, _VP, _I, _I, _I, _I,

@@ -101,3 +101,8 @@ def sh_to_rgb(deg: int, sh, means3d, campos):
 def rgb_to_sh(rgb):
     """Reference utils/sh_utils.py:114."""
     return (rgb - 0.5) / C0
+
+
+def sh_to_rgb_dc(sh):
+    """Reference utils/sh_utils.py:117 (numpy or torch)."""
+    return sh * C0 + 0.5

@@ -1,9 +1,12 @@
-"""Minimal PLY reader (binary little/big-endian + ascii), numpy-only.
+"""Minimal PLY reader (binary little/big-endian + ascii) and writer (binary
+little-endian), numpy-only.
 
-Port of ``gsplat_tpu/data/ply.py::read_ply`` on its pure-python path (the
-JAX package's native C++ fast path is not carried over).  Reads the vertex
-element of the reference checkpoint schema: x,y,z,nx,ny,nz,f_dc_*,f_rest_*,
-opacity,segment_*,scale_*,rot_*.
+Port of ``gsplat_tpu/data/ply.py`` on its pure-python path (the JAX
+package's native C++ reader is not carried over; ROADMAP Queue 1 item 9).
+Reads and writes the vertex element of the reference checkpoint schema
+(x,y,z,nx,ny,nz,f_dc_*,f_rest_*,opacity,segment_*,scale_*,rot_*) and of
+input point clouds (x,y,z,[nx,ny,nz],red,green,blue), byte for byte as the
+JAX package writes them.
 """
 from __future__ import annotations
 
@@ -22,6 +25,8 @@ _PLY_TO_NP = {
     "float": "f4", "float32": "f4",
     "double": "f8", "float64": "f8",
 }
+_NP_TO_PLY = {"f4": "float", "f8": "double", "u1": "uchar", "i4": "int",
+              "u4": "uint", "i1": "char", "i2": "short", "u2": "ushort"}
 
 
 def read_ply(path: str) -> Dict[str, np.ndarray]:
@@ -74,3 +79,38 @@ def read_ply(path: str) -> Dict[str, np.ndarray]:
             for pname, _ in props:
                 out[pname] = np.ascontiguousarray(arr[pname])
     return out
+
+
+def _ply_type(dt: np.dtype) -> str:
+    key = dt.str.lstrip("<>|=")
+    if key not in _NP_TO_PLY:
+        raise ValueError(f"unsupported dtype {dt}")
+    return key
+
+
+def write_ply(path: str, props: Dict[str, np.ndarray], comment: str = ""):
+    """Write a binary little-endian PLY with one 'vertex' element.
+    ``props`` is an ordered dict of 1-D arrays of equal length."""
+    names = list(props.keys())
+    n = len(next(iter(props.values())))
+    cols = []
+    for k in names:
+        a = np.asarray(props[k])
+        if a.ndim != 1 or len(a) != n:
+            raise ValueError(f"property {k} bad shape {a.shape}")
+        cols.append(a)
+    dtype = np.dtype([(k, "<" + _ply_type(c.dtype))
+                      for k, c in zip(names, cols)])
+    rec = np.empty(n, dtype=dtype)
+    for k, c in zip(names, cols):
+        rec[k] = c
+    with open(path, "wb") as f:
+        f.write(b"ply\nformat binary_little_endian 1.0\n")
+        if comment:
+            f.write(f"comment {comment}\n".encode())
+        f.write(f"element vertex {n}\n".encode())
+        for k, c in zip(names, cols):
+            f.write(f"property {_NP_TO_PLY[_ply_type(c.dtype)]} {k}\n"
+                    .encode())
+        f.write(b"end_header\n")
+        f.write(rec.tobytes())

@@ -4,15 +4,19 @@ Parameters live in fixed-capacity tensors ``[capacity, ...]`` with an
 ``alive`` mask, as in the JAX package: dead slots carry opacity logit -30 so
 the rasterizer's own alpha test culls them.  Carried here: the parameter
 and bookkeeping layout, initialisation from a point cloud (KNN scales), the
-Adam state, capacity growth, PLY / npz loading, and ``params_from_numpy`` /
-``aux_from_numpy`` / ``adam_state_from_numpy``, which take the JAX model's
-fields as numpy arrays so both packages start from one state.  Clone, split
-and prune live in ``models/densify.py``; ``save_ply`` and the checkpoints
-come with the trainer and command-line slice.
+Adam state, capacity growth, PLY / npz loading, PLY export, the full
+checkpoints, and ``params_from_numpy`` / ``aux_from_numpy`` /
+``adam_state_from_numpy``, which take the JAX model's fields as numpy
+arrays so both packages start from one state.  The checkpoints use the JAX
+package's npz keys, so a checkpoint written by either package restores in
+the other: a second way of carrying weights across.  Clone, split and prune
+live in ``models/densify.py``.
 """
 from __future__ import annotations
 
+import ast
 import math
+import os
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -236,6 +240,100 @@ class GaussianModel:
         opacity = np.asarray(d["opacity"])[:, None]
         self._set_rows(xyz, f_dc, f_rest, scaling, rot, opacity, seg,
                        capacity)
+
+    def save_ply(self, path: str, mask: Optional[np.ndarray] = None):
+        """Reference-schema PLY of the ALIVE gaussians (compacted), byte for
+        byte the JAX package's ``save_ply``."""
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        alive = self.aux.alive.cpu().numpy()
+        if mask is not None:
+            alive = alive & np.asarray(mask)
+        sel = np.nonzero(alive)[0]
+        p = GaussianParams(*[x.detach().cpu().numpy() for x in self.params])
+        n = len(sel)
+        xyz = p.xyz[sel]
+        f_dc = p.features_dc[sel].transpose(0, 2, 1).reshape(n, -1)
+        f_rest = p.features_rest[sel].transpose(0, 2, 1).reshape(n, -1)
+        props = {}
+        for i, k in enumerate("xyz"):
+            props[k] = xyz[:, i].astype(np.float32)
+        for k in ("nx", "ny", "nz"):
+            props[k] = np.zeros(n, np.float32)
+        for i in range(f_dc.shape[1]):
+            props[f"f_dc_{i}"] = f_dc[:, i].astype(np.float32)
+        for i in range(f_rest.shape[1]):
+            props[f"f_rest_{i}"] = f_rest[:, i].astype(np.float32)
+        props["opacity"] = p.opacity[sel, 0].astype(np.float32)
+        for i in range(p.segment.shape[1]):
+            props[f"segment_{i}"] = p.segment[sel, i].astype(np.float32)
+        for i in range(3):
+            props[f"scale_{i}"] = p.scaling[sel, i].astype(np.float32)
+        for i in range(4):
+            props[f"rot_{i}"] = p.rotation[sel, i].astype(np.float32)
+        # the comment names the file format's family, as the JAX package
+        # writes it, so both packages write the same bytes
+        ply_io.write_ply(path, props, comment="gsplat_tpu")
+
+    # --- full checkpoint (capture/restore, scene/gaussian_model.py:64-98) ----
+    def capture(self) -> dict:
+        """Scalars under "meta", and every state tensor as a numpy array
+        under the JAX package's npz key ("params.<f>", "aux.<f>",
+        "opt.count", "opt.mu.<f>", "opt.nu.<f>")."""
+        state = {
+            "active_sh_degree": self.active_sh_degree,
+            "max_sh_degree": self.max_sh_degree,
+            "num_class": self.num_class,
+            "capacity": self.capacity,
+            "spatial_lr_scale": self.spatial_lr_scale,
+        }
+
+        def host(x):
+            return x.detach().cpu().numpy()
+
+        arrays = {}
+        for k, v in self.params._asdict().items():
+            arrays[f"params.{k}"] = host(v)
+        for k, v in self.aux._asdict().items():
+            arrays[f"aux.{k}"] = host(v)
+        if self.opt_state is not None:
+            arrays["opt.count"] = host(self.opt_state.count)
+            for k, v in self.opt_state.mu._asdict().items():
+                arrays[f"opt.mu.{k}"] = host(v)
+            for k, v in self.opt_state.nu._asdict().items():
+                arrays[f"opt.nu.{k}"] = host(v)
+        return {"meta": state, "arrays": arrays}
+
+    def save_checkpoint(self, path: str, iteration: int):
+        cap = self.capture()
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        np.savez_compressed(
+            path, __iteration=iteration,
+            __meta=np.array(repr(cap["meta"]), dtype=object), **cap["arrays"])
+
+    def restore_checkpoint(self, path: str) -> int:
+        """Restore a checkpoint of either package onto this model's device;
+        returns its iteration."""
+        z = np.load(path, allow_pickle=True)
+        meta = ast.literal_eval(str(z["__meta"].item()))
+        self.active_sh_degree = meta["active_sh_degree"]
+        self.max_sh_degree = meta["max_sh_degree"]
+        self.num_class = meta["num_class"]
+        self.capacity = meta["capacity"]
+        self.spatial_lr_scale = meta["spatial_lr_scale"]
+
+        def tree(cls, prefix):
+            return cls(**{k: torch.from_numpy(np.array(z[prefix + k])).to(
+                self.device) for k in cls._fields})
+
+        self.params = tree(GaussianParams, "params.")
+        self.aux = tree(GaussianAux, "aux.")
+        if "opt.count" in z:
+            self.opt_state = adam.AdamState(
+                count=torch.from_numpy(np.array(z["opt.count"])).to(
+                    self.device),
+                mu=tree(GaussianParams, "opt.mu."),
+                nu=tree(GaussianParams, "opt.nu."))
+        return int(z["__iteration"])
 
     def load_npz(self, path: str):
         """The compressed bench asset (``assets/trained_scene_big.npz``: raw

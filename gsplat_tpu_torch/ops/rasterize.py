@@ -43,9 +43,10 @@ class RasterizeConfig:
     backend: str = "auto"           # only "auto": kernel K1 (its plain
                                     # version on CPU tensors)
     grad_precision: str = "f32"     # "bf16" grad reduce: not ported yet
-    cull: str = "none"              # "exact": not ported yet
-    max_rows: int = 0               # row capacity for cull="exact": not
-                                    # ported yet
+    cull: str = "none"              # "exact": drop instances whose ellipse
+                                    # misses the tile (extras form of K3)
+    max_rows: int = 0               # row capacity for cull="exact"
+                                    # (0 = max_instances // 2)
     full_width: int = 0             # crop rendering: dims of the FULL camera
     full_height: int = 0            # (0 = width/height), with pixel_offset
     render_only: bool = False       # rgb only; alpha = 1 - T_final
@@ -66,8 +67,6 @@ def _check_config(config: RasterizeConfig):
         raise ValueError(f"backend={config.backend!r}: the port has one "
                          "compositor, kernel K1 (backend='auto')")
     unported = {
-        "cull": (config.cull, "none"),
-        "max_rows": (config.max_rows, 0),
         "feat_precision": (config.feat_precision, "f32"),
         "grad_precision": (config.grad_precision, "f32"),
         "mxu_power": (config.mxu_power, False),
@@ -76,7 +75,7 @@ def _check_config(config: RasterizeConfig):
         if value != ported:
             raise NotImplementedError(
                 f"RasterizeConfig.{name}={value!r} is not ported yet; see "
-                "ROADMAP.md, Queue 1")
+                "ROADMAP.md, Queue 1 item 2")
 
 
 def rasterize(
@@ -138,7 +137,8 @@ def rasterize(
     # binning is index bookkeeping: no gradient flows through it
     bins = binning_lib.bin_gaussians(
         pre_lib.PreprocessOut(*[x.detach() for x in pre]),
-        config.grid_x, config.grid_y, config.max_instances, align=ALIGN)
+        config.grid_x, config.grid_y, config.max_instances, align=ALIGN,
+        cull=config.cull, max_rows=config.max_rows)
 
     if config.render_only:
         feats = pre.rgb

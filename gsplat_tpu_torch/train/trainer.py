@@ -1,30 +1,39 @@
-"""Training step (PyTorch port of ``gsplat_tpu/train/trainer.py``:
+"""Training step and loop (PyTorch port of ``gsplat_tpu/train/trainer.py``:
 ``camera_batch``, ``make_loss_fn``, ``gate_on_overflow``,
-``make_train_step``).
+``make_train_step``, ``Trainer``).
 
 Behavioral spec: reference train.py:33-216 / train_segment.py (loss mix,
-densification statistics).  One step is one function over fixed-shape state:
-render through ``ops.rasterize`` (kernels K3 and K1), losses, one
+densification schedule, opacity resets, checkpointing).  One step is one
+function over fixed-shape state: render through ``ops.rasterize`` (kernel
+K3, and under ``cull="exact"`` its extras form, then K1), losses, one
 ``torch.autograd.grad`` (kernels K2 and K4), densification statistics, Adam,
 and the overflow gate.  The step returns new state tensors and leaves the
 ones it was given as they were; it never reads a value back to the host, so
 the overflow gate is a ``torch.where`` per state tensor, as in the JAX
-package.  The ``Trainer`` loop, the appearance step and the pose optimizer
-come with later slices.
+package.  ``Trainer`` is the host loop around it (single device).  The
+appearance step and the pose optimizer come with later slices.
 """
 from __future__ import annotations
 
+import json
+import os
+import time
+from collections import OrderedDict, deque
 from typing import Optional
 
+import numpy as np
 import torch
 
 from gsplat_tpu_torch.core import transforms as T
 from gsplat_tpu_torch.device import check_on, resolve_device
 from gsplat_tpu_torch.models import adam
-from gsplat_tpu_torch.models.densify import add_densification_stats
-from gsplat_tpu_torch.models.gaussians import GaussianParams
+from gsplat_tpu_torch.models.densify import (add_densification_stats,
+                                             densify_and_prune, reset_opacity)
+from gsplat_tpu_torch.models.gaussians import GaussianModel, GaussianParams
+from gsplat_tpu_torch.ops import preprocess as pre_lib
 from gsplat_tpu_torch.ops.rasterize import RasterizeConfig, rasterize
 from gsplat_tpu_torch.train import losses as L
+from gsplat_tpu_torch.train.schedules import make_lr_fn
 
 
 def camera_batch(cam, gt_depth=None, gt_seg=None, device="cuda"):
@@ -34,6 +43,12 @@ def camera_batch(cam, gt_depth=None, gt_seg=None, device="cuda"):
     def f32(x):
         return torch.as_tensor(x, dtype=torch.float32, device=dev)
 
+    if gt_depth is None and gt_seg is None and hasattr(cam, "_pixels"):
+        # LazyCamera: one decode for all three planes (each property access
+        # would decode the file again)
+        image, gt_depth, gt_seg = cam._pixels()
+    else:
+        image = cam.image
     H, W = int(cam.image_height), int(cam.image_width)
     depth = gt_depth if gt_depth is not None else getattr(cam, "depth", None)
     seg = gt_seg if gt_seg is not None else getattr(cam, "segment", None)
@@ -45,7 +60,7 @@ def camera_batch(cam, gt_depth=None, gt_seg=None, device="cuda"):
         "campos": f32(cam.camera_center),
         "tan_fovx": float(cam.tan_fovx),
         "tan_fovy": float(cam.tan_fovy),
-        "gt_image": f32(cam.image),
+        "gt_image": f32(image),
         "gt_depth": (f32(depth) if depth is not None
                      else torch.zeros((1, H, W), device=dev)),
         "has_depth": torch.tensor(depth is not None, device=dev),
@@ -205,3 +220,410 @@ def make_train_step(cfg: RasterizeConfig, opt, sh_degree: int,
         return params, opt_state, aux, metrics
 
     return step
+
+
+class Trainer:
+    """Host-side loop: mirrors train.py's schedule (densify every 100 its
+    between 500 and 15k, opacity reset every 3k, SH degree up every 1k), on
+    one device, the model's.
+
+    What differs from the JAX ``Trainer``:
+    - PyTorch compiles nothing, so the JAX package's compile-ahead machinery
+      (``_pending``, ``_precompile_async``, ``_try_adopt_pending``,
+      ``_pending_inflight_covers``) has no counterpart: a capacity change
+      takes effect at once, which is what the JAX loop does when no
+      background compile is ready.  ``_manage_capacity`` keeps its
+      thresholds (grow above 90% of the capacity or on overflow, twice the
+      capacity at least on overflow; shrink below 50% after a 200-iteration
+      cooldown and 500 iterations after an opacity reset).
+    - The JAX keys become one ``torch.Generator`` on the model's device,
+      seeded from ``seed``; it feeds the random depth losses and the split
+      samples of densification.  Its streams differ from JAX's.
+    - ``profile_dir`` records a ``torch.profiler`` trace (Chrome format).
+    - Options the port does not have yet raise ``NotImplementedError`` with
+      their ROADMAP item: ``data_parallel`` other than 1 and
+      ``tile_parallel`` above 1 (Queue 1 item 7), ``use_appearance``
+      (item 6), ``gui_source_path`` (item 8), and the bf16 precisions
+      (item 2).  ``mxu_power``, which the JAX ``Trainer`` hard-codes to
+      True, acts only on the JAX package's Pallas path and is left off.
+    """
+
+    def __init__(self, model: GaussianModel, scene, opt, *, bg=None,
+                 depth_loss_choice=None, use_seg=False, backend="auto",
+                 max_instances=0, seed=0, model_path=None,
+                 gui_source_path=None, grad_precision="f32", cull="none",
+                 data_parallel=1, use_appearance=False, tile_parallel=1,
+                 gt_cache=0, feat_precision="f32",
+                 convert_shs_python=False, compute_cov3d_python=False,
+                 debug_from=-1, vs_prune=False, white_background=False):
+        if data_parallel not in (0, 1) or tile_parallel > 1:
+            raise NotImplementedError(
+                "data_parallel / tile_parallel: multi-GPU training is not "
+                "ported yet; see ROADMAP.md, Queue 1 item 7")
+        if use_appearance:
+            raise NotImplementedError(
+                "use_appearance: the appearance embedding is not ported "
+                "yet; see ROADMAP.md, Queue 1 item 6")
+        if gui_source_path is not None:
+            raise NotImplementedError(
+                "gui_source_path: the live-viewer socket is not ported yet; "
+                "see ROADMAP.md, Queue 1 item 8")
+        for name, value in (("grad_precision", grad_precision),
+                            ("feat_precision", feat_precision)):
+            if value != "f32":
+                raise NotImplementedError(
+                    f"{name}={value!r}: the bf16 packing is not ported yet; "
+                    "see ROADMAP.md, Queue 1 item 2")
+        if backend != "auto":
+            raise ValueError(f"backend={backend!r}: the port has one "
+                             "compositor (backend='auto')")
+        if cull not in ("none", "exact"):
+            raise ValueError(f"cull must be 'none' or 'exact', got {cull!r}")
+        self.model = model
+        self.scene = scene
+        self.opt = opt
+        self.device = model.device
+        self.use_seg = use_seg
+        self.depth_loss_choice = depth_loss_choice
+        self.backend = backend
+        self.model_path = model_path
+        # pipe.convert_SHs_python / pipe.compute_cov3D_python: precomputed
+        # rasterizer inputs (reference gaussian_renderer/__init__.py:341-359)
+        self.convert_shs_python = convert_shs_python
+        self.compute_cov3d_python = compute_cov3d_python
+        # --debug_from: from this iteration on, check each step's loss is
+        # finite and dump the step's inputs on failure (the reference's
+        # pipe.debug snapshot); -1 = off
+        self.debug_from = debug_from
+        # vs_prune=True restores the screen-radius prune: an ablation arm
+        # only (see models/densify.py::densify_and_prune)
+        self.vs_prune = vs_prune
+        # white_background triggers the reference's extra opacity reset at
+        # densify_from_iter (train.py:178-180)
+        self.white_background = white_background
+        self.last_densify = None  # dict written after each densify call
+        cams = scene.getTrainCameras()
+        W, H = cams[0].image_width, cams[0].image_height
+        P = model.capacity
+        self._auto_capacity = max_instances <= 0
+        if max_instances <= 0:
+            # provisional until _autosize_capacity measures the real scene
+            max_instances = max(1 << 18,
+                                int(2 ** np.ceil(np.log2(max(P, 2) * 8))))
+        self.max_instances = max_instances
+        self.bg = torch.as_tensor(np.zeros(3) if bg is None else bg,
+                                  dtype=torch.float32, device=self.device)
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(seed)
+        self.lr_fn = make_lr_fn(opt, model.spatial_lr_scale)
+        self._steps = {}
+        self._cfg = lambda sh, mi=None: RasterizeConfig(
+            width=W, height=H, sh_degree=sh,
+            num_class=model.num_class if use_seg else 0,
+            max_instances=mi if mi else self.max_instances, backend=backend,
+            grad_precision=grad_precision, cull=cull,
+            feat_precision=feat_precision)
+        self.ema_loss = 0.0
+        self._pending_checks = deque()   # (it, npad, nr, overflow, max_i)
+        self._check_interval = 1         # adaptive (see train loop)
+        self._resize_iter = -10**9       # shrink cooldown anchor
+        self._reset_iter = -10**9        # last opacity reset (demand dip)
+        # LRU cap on the per-camera device-batch cache: every cached batch
+        # pins a camera's GT image (+depth/seg) in device memory.  0 = auto:
+        # ~2 GB of GT batches.
+        if gt_cache <= 0:
+            planes = 3 + 2  # rgb + depth + seg (seg int32 counts as one)
+            per_batch = planes * W * H * 4
+            gt_cache = max(8, int(2e9 // max(per_batch, 1)))
+        self._gt_cache = max(gt_cache, 2)
+        self._batches = OrderedDict()
+
+    def _build_step(self, sh_degree, max_instances):
+        return make_train_step(
+            self._cfg(sh_degree, max_instances), self.opt, sh_degree,
+            self.depth_loss_choice, self.use_seg, self.bg,
+            convert_shs_python=self.convert_shs_python,
+            compute_cov3d_python=self.compute_cov3d_python,
+            device=self.device)
+
+    def _step_fn(self, sh_degree):
+        k = (sh_degree, self.model.capacity, self.max_instances)
+        if k not in self._steps:
+            self._steps[k] = self._build_step(sh_degree, self.max_instances)
+        return self._steps[k]
+
+    def _autosize_capacity(self, cams):
+        """Measure the scene's real instance demand on a few cameras and
+        size the fixed binning capacity snugly (1.35x + per-tile alignment
+        pads) instead of the static P*8 guess: every binning, sort and
+        gather cost scales with the capacity.  Rounded to 128k blocks."""
+        cfg = self._cfg(self.model.max_sh_degree)
+        p = self.model.params
+        demands = []
+        with torch.no_grad():
+            for c in cams[: min(4, len(cams))]:
+                b = camera_batch(c, device=self.device)
+                pre = pre_lib.preprocess(
+                    p.xyz, T.scaling_activation(p.scaling), p.rotation,
+                    T.opacity_activation(p.opacity[:, 0]),
+                    torch.cat([p.features_dc, p.features_rest], dim=1),
+                    self.model.max_sh_degree, b["viewmatrix"],
+                    b["projmatrix"], b["campos"], b["tan_fovx"],
+                    b["tan_fovy"], cfg.width, cfg.height)
+                rh = torch.clamp(pre.rect_max[:, 1] - pre.rect_min[:, 1],
+                                 min=1)
+                rows = torch.sum(torch.where(pre.visible, rh, 0))
+                demands.append((int(torch.sum(pre.tiles_touched)),
+                                int(rows)))
+        nr = max(d[0] for d in demands)
+        rows = max(d[1] for d in demands)
+        pads = cfg.grid_x * cfg.grid_y * 64  # expected pad-inline overhead
+        # the exact-cull row stage's capacity defaults to max_instances//2
+        # (ops/binning.py::row_capacity); rows scale with TILE_Y only, so at
+        # wide tiles instance demand shrinks while rows don't: size the
+        # capacity to cover both (the overflow flag and the geometric regrow
+        # still guard drift during densification)
+        self._resize_capacity(max(int(nr * 1.35) + pads,
+                                  2 * int(rows * 1.35)))
+
+    def _resize_capacity(self, needed: int):
+        blk = 1 << 17
+        self.max_instances = max(1 << 18, (needed + blk - 1) // blk * blk)
+        self._steps.clear()
+
+    def train(self, iterations=None, *, test_iterations=(), save_iterations=(),
+              checkpoint_iterations=(), log_every=10, callback=None,
+              first_iter=0, profile_dir=None, profile_iters=(50, 80)):
+        """``profile_dir``: record a ``torch.profiler`` trace (CPU and, on a
+        card, CUDA activity) over iterations [profile_iters) and write it
+        there as ``trace.json`` (Chrome trace format).  Returns the
+        wall-clock seconds of the loop."""
+        opt = self.opt
+        iterations = iterations or opt.iterations
+        m = self.model
+        cams = list(self.scene.getTrainCameras())
+        if self._auto_capacity:
+            self._autosize_capacity(cams)
+            self._auto_capacity = False
+            print(f"[capacity] instance capacity sized to "
+                  f"{self.max_instances} from measured scene demand")
+        stack = []
+        rng = np.random.default_rng(0)
+        prof = None
+
+        t_start = time.time()
+        for it in range(first_iter + 1, iterations + 1):
+            if profile_dir and it - first_iter == profile_iters[0]:
+                acts = [torch.profiler.ProfilerActivity.CPU]
+                if self.device.type == "cuda":
+                    acts.append(torch.profiler.ProfilerActivity.CUDA)
+                prof = torch.profiler.profile(activities=acts)
+                prof.start()
+            if prof is not None and it - first_iter == profile_iters[1]:
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                prof.stop()
+                os.makedirs(profile_dir, exist_ok=True)
+                prof.export_chrome_trace(
+                    os.path.join(profile_dir, "trace.json"))
+                prof = None
+                print(f"[it {it}] profiler trace written to {profile_dir}")
+            if it % 1000 == 0:
+                m.oneup_sh_degree()
+            if not stack:
+                stack = list(range(len(cams)))
+            cam_idx = stack.pop(rng.integers(0, len(stack)))
+            batch = self._get_batch(cams, cam_idx)
+
+            lrs = self.lr_fn(it)
+            step = self._step_fn(m.active_sh_degree)
+            m.params, m.opt_state, m.aux, metrics = step(
+                m.params, m.opt_state, m.aux, batch, lrs,
+                generator=self.generator)
+            if 0 <= self.debug_from <= it:
+                # reference pipe.debug from --debug_from: a per-step finite
+                # check (one device sync), and the step's inputs dumped on
+                # failure
+                loss_now = float(metrics["loss"])
+                if not np.isfinite(loss_now):
+                    snap = os.path.join(self.model_path or ".",
+                                        f"snapshot_fw_{it}.npz")
+                    arrs = {f"param_{k}": v.detach().cpu().numpy() for k, v
+                            in zip(m.params._fields, m.params)}
+                    arrs.update({f"batch_{k}": np.asarray(
+                        v.cpu() if isinstance(v, torch.Tensor) else v)
+                        for k, v in batch.items()})
+                    np.savez(snap, **arrs)
+                    raise FloatingPointError(
+                        f"non-finite loss {loss_now} at iteration {it}; "
+                        f"step inputs dumped to {snap}")
+
+            # Capacity management with an adaptive check cadence: reading a
+            # step's counts back waits for the card, so the metrics of
+            # earlier steps are read every iteration only near the capacity
+            # limits (or after an overflow or a densification, where demand
+            # jumps), every 3 or 10 otherwise.  Metrics from before the last
+            # resize are stale and skipped.
+            self._pending_checks.append(
+                (it, metrics["num_padded"], metrics["num_rendered"],
+                 metrics["overflow"], self.max_instances))
+            if it % self._check_interval == 0:
+                while len(self._pending_checks) > 2:
+                    (cit, p_np, p_nr, p_ov,
+                     p_mi) = self._pending_checks.popleft()
+                    if p_mi != self.max_instances:
+                        continue
+                    npad, ov = int(p_np), bool(p_ov)
+                    util = npad / max(self.max_instances, 1)
+                    self._check_interval = (1 if ov or util > 0.8
+                                            else 3 if util > 0.55 else 10)
+                    self._manage_capacity(cit, npad, ov)
+
+            if it % log_every == 0 or it == iterations:
+                loss = float(metrics["loss"])
+                self.ema_loss = 0.4 * loss + 0.6 * self.ema_loss
+                if callback:
+                    callback(it, metrics, self)
+                # graceful external stop: touching <model_path>/STOP ends
+                # the run cleanly (checkpoint + PLY)
+                if self.model_path and os.path.exists(
+                        os.path.join(self.model_path, "STOP")):
+                    print(f"[it {it}] STOP file found — saving and exiting")
+                    self.scene.save(it)
+                    m.save_checkpoint(
+                        os.path.join(self.model_path, f"chkpnt{it}.npz"), it)
+                    break
+
+            # densification schedule (train.py:169-180)
+            if it < opt.densify_until_iter:
+                if (it > opt.densify_from_iter
+                        and it % opt.densification_interval == 0):
+                    size_thr = 20.0 if it > opt.opacity_reset_interval else 0.0
+                    m.params, m.aux, m.opt_state, dstats = densify_and_prune(
+                        m.params, m.aux, m.opt_state,
+                        opt.densify_grad_threshold, 0.005,
+                        self.scene.cameras_extent, size_thr,
+                        opt.percent_dense,
+                        use_screen_size=it > opt.opacity_reset_interval,
+                        vs_prune=self.vs_prune, generator=self.generator)
+                    self.last_densify = {
+                        "iter": it, "n_cloned": int(dstats.n_cloned),
+                        "n_split": int(dstats.n_split),
+                        "n_pruned": int(dstats.n_pruned),
+                        "n_dropped": int(dstats.n_dropped),
+                        "n_alive": int(dstats.n_alive)}
+                    if self.last_densify["n_dropped"]:
+                        print(f"[it {it}] WARNING: "
+                              f"{self.last_densify['n_dropped']} densify "
+                              "targets dropped (capacity full)")
+                    self._check_interval = 1  # demand just jumped stepwise
+                if it % opt.opacity_reset_interval == 0 or (
+                        self.white_background
+                        and it == opt.densify_from_iter):
+                    # second clause: reference train.py:178-180 resets once
+                    # at densify_from_iter on white-background datasets
+                    m.params, m.opt_state = reset_opacity(
+                        m.params, m.aux, m.opt_state)
+                    self._reset_iter = it
+
+            if it in save_iterations:
+                print(f"\n[ITER {it}] Saving Gaussians")
+                self.scene.save(it)
+            if it in checkpoint_iterations and self.model_path:
+                print(f"\n[ITER {it}] Saving Checkpoint")
+                m.save_checkpoint(
+                    os.path.join(self.model_path, f"chkpnt{it}.npz"), it)
+            if it in test_iterations:
+                self.report_test(it)
+        if prof is not None:
+            prof.stop()
+        return time.time() - t_start
+
+    def _get_batch(self, cams, i):
+        """Per-camera device batch through the bounded LRU cache (cap
+        ``gt_cache`` entries — see __init__)."""
+        b = self._batches.get(i)
+        if b is None:
+            b = camera_batch(cams[i], device=self.device)
+            self._batches[i] = b
+            while len(self._batches) > self._gt_cache:
+                self._batches.popitem(last=False)
+        else:
+            self._batches.move_to_end(i)
+        return b
+
+    def _manage_capacity(self, it, npad: int, overflow: bool):
+        """Densification grows instance demand; regrow the fixed capacity
+        BEFORE overflow corrupts a step, and at once if one did overflow.
+        ``npad`` is the true padded demand (instances + per-tile alignment
+        pads) measured by the binning itself."""
+        if overflow or npad > 0.9 * self.max_instances:
+            needed = int(npad * 1.35)
+            if overflow:
+                print(f"[it {it}] WARNING: instance capacity "
+                      f"overflow (padded demand {npad}) — regrowing")
+                # grow geometrically (>= 2x): explosive densification would
+                # otherwise overflow again at every doubling
+                needed = max(needed, 2 * self.max_instances)
+            self._resize_capacity(needed)
+            self._resize_iter = it
+            print(f"[it {it}] instance capacity -> {self.max_instances}")
+        elif npad < 0.5 * self.max_instances and \
+                self.max_instances > (1 << 18) and \
+                it - self._resize_iter >= 200 and \
+                it - self._reset_iter >= 500:
+            # shrink toward ~65% utilization: wide hysteresis against the
+            # 90% grow trigger, a 200-iteration cooldown after any resize,
+            # and a 500-iteration hold-off after opacity resets (a reset
+            # halves instance demand for ~100 iterations; shrinking into
+            # that dip would force a paired regrow)
+            self._resize_capacity(int(npad * 1.5))
+            self._resize_iter = it
+            print(f"[it {it}] instance capacity shrunk -> "
+                  f"{self.max_instances}")
+
+    def report_test(self, it):
+        """Periodic eval over the test split and a 5-camera train sample,
+        mirroring the reference's training_report (train.py:227-253).
+        Results are appended to <model_path>/eval_log.jsonl."""
+        from gsplat_tpu_torch.renderer import render as render_fn
+        train_cams = self.scene.getTrainCameras()
+        configs = [("test", self.scene.getTestCameras()),
+                   ("train", [train_cams[idx % len(train_cams)]
+                              for idx in range(5, 30, 5)] if train_cams
+                    else [])]
+        result = None
+        records = []
+        with torch.no_grad():
+            for name, cams in configs:
+                if not cams:
+                    continue
+                l1s, psnrs, ssims = [], [], []
+                for cam in cams:
+                    out = render_fn(cam, self.model, bg_color=self.bg,
+                                    backend=self.backend,
+                                    max_instances=self.max_instances,
+                                    device=self.device)
+                    img = torch.clamp(out["render"], 0, 1)
+                    gt = torch.as_tensor(np.asarray(cam.image),
+                                         dtype=torch.float32,
+                                         device=self.device)
+                    l1s.append(float(L.l1_loss(img, gt)))
+                    psnrs.append(float(L.psnr(img, gt)))
+                    ssims.append(float(L.ssim(img, gt)))
+                print(f"\n[ITER {it}] Evaluating {name}: L1 "
+                      f"{np.mean(l1s):.4f} PSNR {np.mean(psnrs):.2f} SSIM "
+                      f"{np.mean(ssims):.4f}")
+                records.append({"iter": it, "split": name,
+                                "n_cams": len(cams),
+                                "l1": float(np.mean(l1s)),
+                                "psnr": float(np.mean(psnrs)),
+                                "ssim": float(np.mean(ssims))})
+                if result is None:
+                    result = float(np.mean(psnrs))
+        if self.model_path and records:
+            with open(os.path.join(self.model_path, "eval_log.jsonl"),
+                      "a") as f:
+                for r in records:
+                    f.write(json.dumps(r) + "\n")
+        return result

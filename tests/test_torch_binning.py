@@ -1,6 +1,8 @@
 """Port binning vs the JAX package: the same PreprocessOut goes to both, and
 every BinningOut field must be bit-equal to the JAX expansion kernel K3
 (Pallas, interpret mode on the CPU) and to the JAX XLA forward fill."""
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -15,6 +17,7 @@ from torch_helpers import (jax_pre_to_torch, make_camera, make_gaussians_np,
 W, H = 128, 96
 
 
+@functools.lru_cache(maxsize=None)
 def _pre(seed, n=600):
     rng = np.random.default_rng(seed)
     g = make_gaussians_np(rng, n=n, spread=1.5)
@@ -76,6 +79,15 @@ def test_expand_plain_matches_jax_kernel_on_sources():
 
 
 def test_unported_cull_raises():
-    _, pt, gx, gy = _pre(4, n=50)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tbin.bin_gaussians(pt, gx, gy, 1 << 12, cull="exact")
+    """A cull mode the port does not have raises, and exact cull refuses a
+    capacity the JAX kernel's 1024-slot programs cannot tile (JAX asserts
+    there; the port raises ValueError).  Exact cull itself is held against
+    the JAX package in ``tests/test_torch_cull.py``."""
+    _, pt, gx, gy = _pre(0)
+    with pytest.raises(ValueError, match="cull"):
+        tbin.bin_gaussians(pt, gx, gy, 1 << 12, cull="approx")
+    with pytest.raises(ValueError, match="multiple of 1024"):
+        tbin.bin_gaussians(pt, gx, gy, 1152, cull="exact")
+    assert tbin.row_capacity(1 << 14) == 8192
+    assert tbin.row_capacity(1 << 14, 1000) == 1024
+    assert tbin.row_capacity(1024) == 1024

@@ -136,7 +136,10 @@ def test_import_is_jax_free():
     code = ("import sys, gsplat_tpu_torch, gsplat_tpu_torch.renderer, "
             "gsplat_tpu_torch.ops.composite_ref, gsplat_tpu_torch._kernels, "
             "gsplat_tpu_torch.train.trainer, gsplat_tpu_torch.train.schedules, "
-            "gsplat_tpu_torch.models.densify, gsplat_tpu_torch.config\n"
+            "gsplat_tpu_torch.models.densify, gsplat_tpu_torch.config, "
+            "gsplat_tpu_torch.data.ply, gsplat_tpu_torch.data.colmap, "
+            "gsplat_tpu_torch.data.readers, gsplat_tpu_torch.data.scene, "
+            "gsplat_tpu_torch.scripts.train\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'gsplat_tpu' or m.startswith('gsplat_tpu.')]\n"
             "assert not bad, bad\n")

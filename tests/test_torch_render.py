@@ -122,8 +122,7 @@ def test_forward_only_and_unported_options_raise():
     (g,) = torch.autograd.grad(out["render"].sum() + out["depth"].sum(), means)
     assert g.shape == (16, 3) and torch.isfinite(g).all()
     assert float(g.abs().max()) > 0.0
-    for field, value in (("cull", "exact"), ("max_rows", 1024),
-                         ("feat_precision", "bf16"),
+    for field, value in (("feat_precision", "bf16"),
                          ("grad_precision", "bf16"), ("mxu_power", True)):
         bad = RasterizeConfig(width=32, height=32, max_instances=1 << 12,
                               **{field: value})

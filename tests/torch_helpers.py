@@ -4,9 +4,12 @@ Inputs are made once in numpy from a seeded generator and handed to both
 packages; JAX stays on the CPU and the port runs with ``device="cpu"``,
 where every kernel wrapper uses its plain PyTorch version.
 """
+import argparse
 import math
+import random
 
 import numpy as np
+import pytest
 import torch
 
 # xdist runs several workers on the machine and the test sizes are tiny:
@@ -86,9 +89,10 @@ def preprocess_both(g, cam, width, height, sh_degree=3, **kw):
 
 
 def rasterize_both(g, cam, width, height, bg, num_class=0,
-                   max_instances=1 << 14, render_only=False):
+                   max_instances=1 << 14, render_only=False, **cfg_kw):
     """Port rasterize (CPU) and JAX rasterize (Pallas path, interpret mode
-    on the CPU) of the same numpy inputs; outputs as numpy dicts."""
+    on the CPU) of the same numpy inputs; outputs as numpy dicts.
+    ``cfg_kw`` (e.g. ``cull``, ``max_rows``) goes to both configs."""
     import jax.numpy as jnp
     from gsplat_tpu.ops.rasterize import RasterizeConfig as JCfg
     from gsplat_tpu.ops.rasterize import rasterize as jrast
@@ -96,10 +100,10 @@ def rasterize_both(g, cam, width, height, bg, num_class=0,
     c = cam_np(cam)
     jcfg = JCfg(width=width, height=height, num_class=num_class,
                 max_instances=max_instances, backend="pallas",
-                render_only=render_only)
+                render_only=render_only, **cfg_kw)
     tcfg = RasterizeConfig(width=width, height=height, num_class=num_class,
                            max_instances=max_instances,
-                           render_only=render_only)
+                           render_only=render_only, **cfg_kw)
     seg = g.get("segments") if num_class else None
     jo = jrast(jcfg, *[jnp.asarray(g[k]) for k in GAUSS_KEYS],
                **to_jax(c), bg=jnp.asarray(bg),
@@ -158,3 +162,84 @@ def tree_np(tree):
     arrays."""
     return {k: np.asarray(v.detach() if isinstance(v, torch.Tensor) else v)
             for k, v in tree._asdict().items()}
+
+
+# --- the synthetic scene of the command-line tests -----------------------------
+
+SCENE_CLASSES = 2
+
+
+@pytest.fixture(scope="module")
+def scene_dir(tmp_path_factory):
+    """``make_synthetic_scene.make_scene``'s NeRFstudio scene at 48x48: 150
+    gaussians, 6 cameras with depth and segment labels (once per file)."""
+    from make_synthetic_scene import make_scene
+    d = str(tmp_path_factory.mktemp("synth"))
+    make_scene(d, n_gauss=150, n_cams=6, width=48, height=48,
+               num_class=SCENE_CLASSES, with_depth=True)
+    return d
+
+
+def dataset_args(scene_dir, model_path):
+    return argparse.Namespace(
+        source_path=scene_dir, model_path=model_path, images="images",
+        resolution=-1, white_background=False, eval=True, using_depth=True,
+        using_seg=True)
+
+
+@pytest.fixture(scope="module")
+def scenes(scene_dir, tmp_path_factory):
+    """(JAX Scene with its model, port Scene with its CPU model), loaded
+    with the same shuffle."""
+    from gsplat_tpu.data.scene import Scene as JScene
+    from gsplat_tpu.models.gaussians import GaussianModel as JModel
+    from gsplat_tpu_torch.data.scene import Scene as TScene
+    from gsplat_tpu_torch.models.gaussians import GaussianModel
+    out = []
+    for name, scene_cls, model in (
+            ("jax", JScene, JModel(3, num_class=SCENE_CLASSES, capacity=512)),
+            ("port", TScene, GaussianModel(3, num_class=SCENE_CLASSES,
+                                           capacity=512, device="cpu"))):
+        random.seed(0)
+        args = dataset_args(scene_dir, str(tmp_path_factory.mktemp(name)))
+        out.append(scene_cls(args, model))
+    return out
+
+
+def model_pair(rng, capacity=96, n=80):
+    """A JAX model and a port model (CPU) of the same random state
+    (``model_state_np``), active SH degree 2."""
+    import jax.numpy as jnp
+    from gsplat_tpu.models.gaussians import GaussianModel as JModel
+    from gsplat_tpu.models.gaussians import GaussianParams as JParams
+    from gsplat_tpu_torch.models.gaussians import params_from_numpy
+    p = model_state_np(rng, n=n, capacity=capacity, num_class=SCENE_CLASSES)
+    alive = p.pop("alive")
+    jm = JModel(3, num_class=SCENE_CLASSES, capacity=capacity)
+    jm.params = JParams(**{k: jnp.asarray(v) for k, v in p.items()})
+    jm.aux = jm.aux._replace(alive=jnp.asarray(alive))
+    jm.active_sh_degree = 2
+    tm = params_from_numpy(dict(p, alive=alive), device="cpu",
+                           active_sh_degree=2)
+    return jm, tm
+
+
+def port_opt(**kw):
+    """The port's ``OptimizationParams`` with the given fields changed."""
+    from gsplat_tpu_torch.config import OptimizationParams
+    o = OptimizationParams()
+    for k, v in kw.items():
+        setattr(o, k, v)
+    return o
+
+
+class RecordSteps:
+    """A ``Trainer.train`` callback keeping (iteration, loss, overflow,
+    instance capacity) of every call."""
+
+    def __init__(self):
+        self.rows = []
+
+    def __call__(self, it, metrics, tr):
+        self.rows.append((it, float(metrics["loss"]),
+                          bool(metrics["overflow"]), tr.max_instances))
