@@ -12,7 +12,8 @@ Phases (any failure exits non-zero; nothing is caught):
 2. load the 1080p serving scene ``assets/trained_scene_big.npz`` (262,046
    gaussians, SH degree 3) plus num_class=2 segment logits from
    ``numpy.random.default_rng(0)``, at bench.py's 1920x1080 camera
-   (R = I, T = [0, 0.6, 4.2], FoVx 62 degrees);
+   (R = I, T = [0, 0.6, 4.2], FoVx 62 degrees), and build K1's and K2's
+   inputs through ``gsplat_tpu_torch.tools.workload.asset_workload``;
 3. K3 (expansion): the kernel against its plain version at the scene's real
    binning inputs — tile ids, gaussian ids and tile starts bit-equal; (a)
    its extras form K3x at the scene's real exact-cull stage-A sources — rows,
@@ -55,10 +56,17 @@ Phases (any failure exits non-zero; nothing is caught):
    and a checkpoint that restores to equal tensors; (d) the command line
    ``scripts.train.main`` in process with ``--cull exact`` on a small
    NeRFstudio scene written with the port — its files written and K3x
-   launched.
+   launched;
+10. (e) the kernel probes of ``gsplat_tpu_torch.tools``: P1 and P2
+   ``base`` bit-equal to K1 and K2 at the asset, every variant of P1 to P4
+   against its plain version on every 17th tile (and P4 on a seeded
+   block), then the six entry modules ``bench_*.main`` with the launch
+   counts zeroed just before — each of P1 to P4 launched — which time
+   every variant and print its share of the base variant and its bound.
 
-The last three lines are the kernel table as one JSON object (K1 to K4 and
-K3x), the card line, and ``{"ok": true, "device": {...}}``.  Without a usable card the
+The last three lines are the kernel table as one JSON object (K1 to K4,
+K3x and P1 to P4, the P rows with every variant), the card line, and
+``{"ok": true, "device": {...}}``.  Without a usable card the
 script exits 2 and prints no result.
 """
 import ctypes
@@ -73,8 +81,6 @@ import time
 # (tests/test_pallas_composite.py:35-43).
 ATOL = {"rgb": 3e-5, "alpha": 3e-5, "segment": 3e-5, "T_final": 3e-5,
         "depth": 3e-4}
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM, published
-FP32_OPS_PER_S = 67e12         # H100 SXM, published, non-tensor fp32
 W, H = 1920, 1080
 NUM_CLASS = 2
 ASSET = os.path.join("assets", "trained_scene_big.npz")
@@ -106,12 +112,6 @@ def event_ms(torch, fn, iters, warmup=2):
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / iters
-
-
-def bound_ms(nbytes, nops):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / FP32_OPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def compare_k1(comp, packed, packed_p, C):
@@ -151,73 +151,6 @@ def build_k1_variant(_kernels, fmad):
     fn.argtypes = _kernels.SIGNATURES["gsplat_composite_forward"]
     fn.restype = ctypes.c_int
     return fn
-
-
-# fp32 operations of K1 (csrc/composite_fwd.cu) per (pixel, instance) pair,
-# exp2 counted as one: a tested pair takes dx, dy (2), power (9), the exp2
-# argument, exp2, opacity product and cap (4) and the two skip tests (2); a
-# pair that passes them takes test_T and its compare (3); a composited pair
-# also takes alpha*T and a multiply and an add per channel (1 + 2C).
-K1_TEST_OPS = 17
-K1_STEP_OPS = 3
-
-
-def k1_pair_counts(torch, comp, table, gauss_id, starts, counts, grid_x,
-                   n_contrib):
-    """(tested, composited, stopping) (pixel, instance) pairs that K1 needs
-    on these inputs, given the plain version's per-pixel ``n_contrib``
-    [T, TILE_PIX] (1-based position of the last composited instance).
-
-    Before position n_contrib every instance that passes the skip tests is
-    composited.  The first one that passes them after it stops the pixel;
-    a pixel with none tests its whole tile."""
-    dev = table.device
-    P, R = table.shape
-    K = comp.CHUNK
-    table_p = torch.cat([table, table.new_zeros((1, R))])   # sentinel row P
-    big = torch.iinfo(torch.int64).max
-    ks = torch.arange(K, device=dev)
-    tb = max(1, (1 << 25) // (K * comp.TILE_PIX))
-    tested = composited = stopping = 0
-    for t0 in range(0, starts.shape[0], tb):
-        t1 = min(starts.shape[0], t0 + tb)
-        px, py = comp.pixel_coords(torch.arange(t0, t1, device=dev), grid_x)
-        st, cnt = starts[t0:t1].long(), counts[t0:t1].long()
-        nc = n_contrib[t0:t1].long()                         # [n,PIX]
-        stop = torch.full_like(nc, big)
-        for c0 in range(0, int(cnt.max()), K):
-            if bool(((stop < big) | (cnt[:, None] <= c0)).all()):
-                break
-            pos = c0 + ks                                    # [K]
-            valid = pos[None] < cnt[:, None]                 # [n,K]
-            idx = torch.clamp(st[:, None] + pos[None], 0,
-                              gauss_id.shape[0] - 1)
-            gid = torch.where(valid, gauss_id[idx].long(), P)
-            gid = torch.where((gid >= 0) & (gid < P), gid, P)
-            power, alpha = comp.pair_power_alpha(table_p[gid], px, py)
-            passes = ((gid < P)[:, :, None] & (power <= 0.0)
-                      & (alpha >= comp.ALPHA_MIN))
-            before = pos[None, :, None] < nc[:, None, :]
-            composited += int((passes & before).sum())
-            stop = torch.minimum(stop, torch.where(
-                passes & ~before, pos[None, :, None], big).amin(dim=1))
-        found = stop < big
-        stopping += int(found.sum())
-        tested += int(torch.where(found, stop + 1, cnt[:, None]).sum())
-    return tested, composited, stopping
-
-
-# fp32 operations of K2 (csrc/composite_bwd.cu) per (pixel, instance) pair: a
-# tested pair (every position up to the pixel's n_contrib) takes K1's 17 and
-# the n_contrib gate (1); a composited pair also takes g (2C), w (1), the
-# prefix (2), the suffix (1), d alpha (5), the cap test and dpow (2), the
-# five moment products (5), the T update (2), the feature products (Cg) and
-# one add per summed value (6 + Cg): 24 + 2C + 2Cg.
-K2_TEST_OPS = 18
-
-
-def k2_pair_ops(C, Cg):
-    return 24 + 2 * C + 2 * Cg
 
 
 def single_ms(torch, fn):
@@ -268,6 +201,7 @@ def profile_window(torch, fn, n, unit, median_ms, card, top=8):
 def phase_k4(torch, seg, card, gauss_id, P, R):
     """K4 at the training path's inputs: the asset's instance list sorted by
     gaussian id, [I, R] rows from a seeded generator."""
+    from gsplat_tpu_torch.tools import workload as wl
     dev = gauss_id.device
     I = gauss_id.shape[0]
     gen = torch.Generator(device=dev)
@@ -307,7 +241,7 @@ def phase_k4(torch, seg, card, gauss_id, P, R):
     # bytes these inputs need: each kept row once with its id and its
     # permutation entry, each output word once; one add per kept value
     nbytes = n_kept * (R * 4 + 4 + 8) + P * R * 4
-    bound, by = bound_ms(nbytes, n_kept * R)
+    bound, by = wl.bound_ms(nbytes, n_kept * R)
     print(f"K4 [{card}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
           f"index_add_ {library_ms:.4f} ms, the id sort before it "
           f"{sort_ms:.4f} ms; bound {bound:.4f} ms ({nbytes} bytes, "
@@ -316,15 +250,14 @@ def phase_k4(torch, seg, card, gauss_id, P, R):
             "bound_ms": bound, "bound_by": by, "library_ms": library_ms}
 
 
-def phase_k2(torch, comp, card, k1_args, packed, P, C, tested, composited):
+def phase_k2(torch, comp, card, k1_args, packed, d_packed, P, C, tested,
+             composited):
     """K2 on the asset's binning and K1's packed output, with a seeded
-    cotangent, against its plain version."""
+    cotangent (``tools.workload.asset_workload``'s), against its plain
+    version."""
+    from gsplat_tpu_torch.tools import workload as wl
     table, gauss_id, starts, counts, gx = k1_args
-    dev = table.device
     Cg = C - 1                      # the ones channel gets no gradient row
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(2)
-    d_packed = torch.randn(packed.shape, generator=gen, device=dev)
     args = (*k1_args, packed, d_packed, Cg)
     d_k = comp.composite_backward(*args)
     torch.cuda.synchronize()
@@ -353,12 +286,13 @@ def phase_k2(torch, comp, card, k1_args, packed, P, C, tested, composited):
     nbytes = (table.numel() * 4 + int(counts.sum()) * 4
               + 2 * 4 * starts.shape[0] + 2 * packed.numel() * 4
               + d_k.numel() * 4)
-    nops = K2_TEST_OPS * tested + k2_pair_ops(C, Cg) * composited
-    bound, by = bound_ms(nbytes, nops)
+    nops = wl.K2_TEST_OPS * tested + wl.k2_pair_ops(C, Cg) * composited
+    bound, by = wl.bound_ms(nbytes, nops)
     print(f"K2 [{card}]: kernel {ms:.4f} ms (with the zero fill of its "
           f"[{d_k.shape[0]}, {d_k.shape[1]}] output); bound {bound:.4f} ms "
-          f"({nbytes} bytes; {nops} ops = {K2_TEST_OPS} x {tested} pairs up "
-          f"to n_contrib + {k2_pair_ops(C, Cg)} x {composited} composited)")
+          f"({nbytes} bytes; {nops} ops = {wl.K2_TEST_OPS} x {tested} pairs "
+          f"up to n_contrib + {wl.k2_pair_ops(C, Cg)} x {composited} "
+          "composited)")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": by, "library_ms": None}
 
@@ -378,6 +312,7 @@ def phase_k3x(torch, card, bin_lib, pre, gx, gy, cap):
     to ``expand_plain``; then exact-cull ``bin_gaussians`` field by field
     against the same function with K3 and K3x swapped for their plain
     versions."""
+    from gsplat_tpu_torch.tools import workload as wl
     t0 = time.perf_counter()
     rs = bin_lib.row_sources(pre, gx, gy, 128)
     IR = bin_lib.row_capacity(cap)
@@ -433,7 +368,7 @@ def phase_k3x(torch, card, bin_lib, pre, gx, gy, cap):
     # slot
     nbytes = (3 + 8) * 4 * S + (2 + 8) * 4 * IR
     nops = IR * (4 * math.ceil(math.log2(S + 1)) + 12)
-    bound, by = bound_ms(nbytes, nops)
+    bound, by = wl.bound_ms(nbytes, nops)
     print(f"K3x [{card}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; bound "
           f"{bound:.5f} ms ({nbytes} bytes, {nops} ops); bin_gaussians "
           f"exact {cull_ms:.4f} ms, none {none_ms:.4f} ms; phase "
@@ -1027,6 +962,195 @@ def phase_cli(torch, np, card):
     return launches
 
 
+# (e) the kernel probes.  Every 17th tile of the asset (120 of 2,040,
+# empty and full ones) is where each variant meets its plain version; P1's
+# and P2's base meet K1 and K2 on the whole asset, bit for bit.
+PROBE_SUBSET = 17
+PROBE_KERNELS = ("probe_forward", "probe_backward", "probe_load",
+                 "probe_dtype")
+# P4 in bfloat16, on the tool's block (x = 0.3) and a seeded uniform one:
+# the plain version rounds each operation to bf16 like the kernel, but takes
+# exp through torch in float32 and rounds once, where h2exp rounds
+# ex2.approx.f32 of x * log2(e); the two agreed on every element of both
+# blocks on an H100, and one bf16 step of disagreement would move the sum
+# by about one of its own steps: 2^-7 of the value.
+P4_BF16_RTOL = 2.0 ** -7
+
+
+def compare_packed(torch, got, want, C):
+    """P1's (and compute_resident's) rule: each of the C channels and
+    T_final within 3e-5 of max(1, the row's largest |value|) (K1's
+    tolerance, tests/test_pallas_composite.py:35-43, scaled for the sums of
+    the variants without termination), n_contrib exact.  Returns (max
+    |diff| over the rows checked, pixels over tolerance)."""
+    d = (got[:, :C + 1] - want[:, :C + 1]).abs()
+    scale = torch.clamp(want[:, :C + 1].abs().amax(dim=(0, 2)), min=1.0)
+    bad = int((d > 3e-5 * scale[None, :, None]).sum())
+    bad += int((got[:, C + 1] != want[:, C + 1]).sum())
+    return float(d.max()), bad
+
+
+def compare_rows(torch, got, want):
+    """P2's rule, K2's: each column within 1e-3 of its largest |value|.
+    Returns (max |diff|, the worst column's diff over its scale)."""
+    diff = (got - want).abs().amax(dim=0)
+    scale = want.abs().amax(dim=0)
+    worst = float(torch.where(scale > 0, diff / torch.where(
+        scale > 0, scale, 1.0), torch.where(diff > 0, float("inf"), 0.0))
+        .max())
+    return float(diff.max()), worst
+
+
+def phase_probes(torch, card, w):
+    """(e) The kernel probes of ``gsplat_tpu_torch.tools`` at the asset: P1
+    and P2 ``base`` bit-equal to K1 and K2; every variant of P1 to P4
+    against its plain version; then the six entry modules with the launch
+    counts zeroed just before (each of P1 to P4 launched), which time every
+    variant.  Returns the kernel table's rows for P1 to P4."""
+    from gsplat_tpu_torch import _kernels
+    from gsplat_tpu_torch.ops import composite_cuda as comp
+    from gsplat_tpu_torch.tools import (bench_bwd_attrib, bench_dma_overhead,
+                                        bench_fwd_attrib,
+                                        bench_inkernel_gather, bench_kernels,
+                                        bench_vpu_dtype, probes)
+    from gsplat_tpu_torch.tools import workload as wl
+    t0 = time.perf_counter()
+    dev = w.table.device
+    C = w.C
+    check(bits_equal(torch, probes.probe_forward("base", *w.k1_args),
+                     comp.composite_forward(*w.k1_args)),
+          "P1: base is not bit-equal to K1")
+    check(bits_equal(torch, probes.probe_backward("base", *w.k2_args),
+                     comp.composite_backward(*w.k2_args)),
+          "P2: base is not bit-equal to K2")
+    keep = torch.arange(w.counts.shape[0], device=dev) % PROBE_SUBSET == 0
+    cnt = torch.where(keep, w.counts, 0).to(torch.int32)
+    sub1 = (w.table, w.gauss_id, w.starts, cnt, w.grid_x)
+    sub2 = (*sub1, w.packed, w.d_packed, w.Cg)
+    errs = {k: 0.0 for k in ("P1", "P2", "P3", "P4")}
+    lines = []
+    for v in probes.FWD_VARIANTS:
+        err, bad = compare_packed(torch, probes.probe_forward(v, *sub1),
+                                  probes.probe_forward_plain(v, *sub1), C)
+        check(bad == 0, f"P1 {v}: {bad} values outside tolerance")
+        errs["P1"] = max(errs["P1"], err)
+        lines.append(f"P1 {v} {err:.3g}")
+    for v in probes.BWD_VARIANTS:
+        err, worst = compare_rows(torch, probes.probe_backward(v, *sub2),
+                                  probes.probe_backward_plain(v, *sub2))
+        check(worst <= 1e-3, f"P2 {v}: a column differs by {worst:.3g} of "
+              "its largest value")
+        errs["P2"] = max(errs["P2"], err)
+        lines.append(f"P2 {v} {err:.3g} ({worst:.2g} of the column)")
+    limits = w.pairs["limits"]
+    for v in probes.LOAD_VARIANTS:
+        got = probes.probe_load(v, *sub1, limits=limits)
+        want = probes.probe_load_plain(v, *sub1, limits=limits)
+        if v == "compute_resident":
+            err, bad = compare_packed(torch, got, want, C)
+            check(bad == 0, f"P3 {v}: {bad} values outside tolerance")
+        else:
+            err = float((got - want).abs().max())
+            check(torch.equal(got, want), f"P3 {v}: differs from its plain "
+                  "version (the same adds in the same order)")
+        errs["P3"] = max(errs["P3"], err)
+        lines.append(f"P3 {v} {err:.3g}")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    t128 = torch.randn((w.table.shape[0], 128), generator=gen, device=dev)
+    for src in (w.table, t128):             # ids include the pad sentinel
+        got = probes.probe_gather("row_gather", src, w.gauss_id)
+        check(torch.equal(got, probes.probe_gather_plain(
+            "row_gather", src, w.gauss_id)), "P3 row_gather differs")
+        check(torch.equal(probes.probe_gather("block_copy", got), got),
+              "P3 block_copy differs")
+    lines.append("P3 row_gather, block_copy exact at R = 13 and 128")
+    gen.manual_seed(4)
+    u = torch.rand(bench_vpu_dtype.SHAPE, generator=gen, device=dev)
+    for x in (*bench_vpu_dtype.inputs(dev).values(), u, u.bfloat16()):
+        got = probes.probe_dtype(x, bench_vpu_dtype.N_PROGRAMS,
+                                 bench_vpu_dtype.N_ITERS).float()
+        want = probes.probe_dtype_plain(x, bench_vpu_dtype.N_ITERS).float()
+        rel = float(((got - want).abs() / want.abs()).max())
+        tol = P4_BF16_RTOL if x.dtype == torch.bfloat16 else 1e-6
+        check(rel <= tol, f"P4 {x.dtype}: relative diff {rel:.3g} over {tol}")
+        errs["P4"] = max(errs["P4"], float((got - want).abs().max()))
+        lines.append(f"P4 {x.dtype} relative {rel:.3g} (tolerance {tol:.3g})")
+    print("probes (e): P1 base and P2 base bit-equal to K1 and K2 at the "
+          f"asset; against the plain versions on {int(keep.sum())} tiles, "
+          "max |diff|: " + "; ".join(lines))
+    stats = wl.pair_stats(w)
+    print(f"probes (e): pairs {json.dumps({k: v for k, v in stats.items() if k != 'limits'})}")
+
+    # the entry modules, as a user runs them, counted
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    fwd = bench_fwd_attrib.main(workload=w, stats=stats)
+    bwd = bench_bwd_attrib.main(workload=w, stats=stats)
+    kfwd, _, _ = bench_kernels.main(workload=w, stats=stats)
+    dma = bench_dma_overhead.main(workload=w, stats=stats)
+    gather = bench_inkernel_gather.main(workload=w)
+    dtype = bench_vpu_dtype.main()
+    torch.cuda.synchronize()
+    launches = {k: _kernels.launch_counts[k] for k in PROBE_KERNELS}
+    print(f"probes (e): launches {json.dumps(launches)}")
+    check(all(n > 0 for n in launches.values()),
+          "probes: a probe kernel was not launched by the entry modules")
+
+    def variants(rows):
+        return {r["name"]: {k: r[k] for k in ("ms", "share", "bound_ms",
+                                              "bound_by", "launches")
+                            if k in r} for r in rows}
+
+    p1 = variants(fwd)
+    p1.update({k: v for k, v in variants(kfwd).items() if k not in p1})
+    (l128, g128), (lprod, gprod) = gather
+    p3 = variants(dma)
+    for label, rows in ((l128, g128), (lprod, gprod)):
+        p3.update({f"{r['name']} {label}": v for r, v in zip(
+            rows, variants(rows).values())})
+    g = {r["name"]: r for r in gprod}
+    _, t13, ids = bench_inkernel_gather.tables(w, dev)[1]
+    x32 = bench_vpu_dtype.inputs(dev)["f32"]
+    plain = {
+        "P1": single_ms(torch, lambda: probes.probe_forward_plain(
+            "base", *w.k1_args))[0],
+        "P2": single_ms(torch, lambda: probes.probe_backward_plain(
+            "base", *w.k2_args))[0],
+        "P3": event_ms(torch, lambda: probes.probe_gather_plain(
+            "row_gather", t13, ids), 5),
+        "P4": event_ms(torch, lambda: probes.probe_dtype_plain(
+            x32, bench_vpu_dtype.N_ITERS), 5),
+    }
+    print(f"probes (e) [{card}]: plain versions {json.dumps(plain)} ms; "
+          f"phase {time.perf_counter() - t0:.1f} s")
+
+    def row(name, source, replaces, counter, r, err, plain_ms, library_ms,
+            var):
+        return {"name": name, "route": "cuda",
+                "source": f"gsplat_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches[counter],
+                "max_abs_err": err, "ms": r["ms"], "plain_ms": plain_ms,
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": library_ms, "variants": var}
+
+    return [
+        row("P1 probe_forward (base)", "probe_fwd.cu",
+            "tools/bench_fwd_attrib.py:35", "probe_forward", fwd[0],
+            errs["P1"], plain["P1"], None, p1),
+        row("P2 probe_backward (base)", "probe_bwd.cu",
+            "tools/bench_bwd_attrib.py:49", "probe_backward", bwd[0],
+            errs["P2"], plain["P2"], None, variants(bwd)),
+        row(f"P3 probe_load (row_gather {lprod})", "probe_load.cu",
+            "tools/bench_inkernel_gather.py:46", "probe_load",
+            g["row_gather"], errs["P3"], plain["P3"],
+            g["index_select"]["ms"], p3),
+        row("P4 probe_dtype (f32)", "probe_dtype.cu",
+            "tools/bench_vpu_dtype.py:23", "probe_dtype", dtype[0],
+            errs["P4"], plain["P4"], None, variants(dtype)),
+    ]
+
+
 def main():
     import numpy as np
     import torch
@@ -1040,12 +1164,13 @@ def main():
     from gsplat_tpu_torch import renderer
     from gsplat_tpu_torch.core import transforms as T
     from gsplat_tpu_torch.core.cameras import Camera
-    from gsplat_tpu_torch.models.gaussians import GaussianModel, params_from_numpy
+    from gsplat_tpu_torch.models.gaussians import params_from_numpy
     from gsplat_tpu_torch.ops import binning as bin_lib
     from gsplat_tpu_torch.ops import composite_cuda as comp
     from gsplat_tpu_torch.ops import preprocess as pre_lib
     from gsplat_tpu_torch.ops import segment_reduce as seg_lib
     from gsplat_tpu_torch.ops.composite_ref import composite_reference
+    from gsplat_tpu_torch.tools import workload as wl
 
     # plain versions use no matmul, but state the fp32 modes all the same
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1068,29 +1193,16 @@ def main():
                 or line.startswith("==")):
             print("  ptxas:", line.strip())
 
-    # ---- 2. scene ---------------------------------------------------------
-    model = GaussianModel(3, num_class=NUM_CLASS, capacity=1, device=dev)
-    model.load_npz(ASSET)
+    # ---- 2. scene, binning and K1's inputs (tools.workload) ----------------
+    w = wl.asset_workload(dev, pair_counts=False)
+    sc = w.scene
+    model, cam, pre, bins, feats, cap = (sc[k] for k in (
+        "model", "cam", "pre", "bins", "feats", "cap"))
+    pre_args = sc["pre_args"]
     P = model.capacity
-    seg = np.random.default_rng(0).standard_normal((P, NUM_CLASS))
-    model.params = model.params._replace(
-        segment=torch.from_numpy(seg.astype(np.float32)).to(dev))
-    fovx = math.radians(62.0)
-    fovy = 2 * math.atan(math.tan(fovx / 2) * H / W)
-    cam = Camera(colmap_id=0, R=np.eye(3), T=np.array([0.0, 0.6, 4.2]),
-                 FoVx=fovx, FoVy=fovy, image=np.zeros((3, H, W), np.float32),
-                 image_name="bench", uid=0)
-    gx = (W + pre_lib.TILE_X - 1) // pre_lib.TILE_X
-    gy = (H + pre_lib.TILE_Y - 1) // pre_lib.TILE_Y
-    num_tiles = gx * gy
-    cap = renderer._auto_capacity(cam, model, W, H, 1.0)
     p = model.params
-    mats = [torch.as_tensor(m, device=dev) for m in (
-        cam.world_view_transform, cam.full_proj_transform, cam.camera_center)]
-    pre_args = (p.xyz, T.scaling_activation(p.scaling), p.rotation,
-                T.opacity_activation(p.opacity[:, 0]), model.get_features, 3,
-                *mats, cam.tan_fovx, cam.tan_fovy, W, H)
-    pre = pre_lib.preprocess(*pre_args)
+    gx, gy = w.grid_x, sc["grid_y"]
+    num_tiles = gx * gy
     print(f"scene: {P} gaussians, {W}x{H}, tile {pre_lib.TILE_X}x"
           f"{pre_lib.TILE_Y} ({num_tiles} tiles), capacity {cap}, "
           f"visible {int(pre.visible.sum())}")
@@ -1105,7 +1217,6 @@ def main():
     k3_err = max(int((tile_k - tile_p).abs().max()),
                  int((gid_k - gid_p).abs().max()))
     k3_bad = int((tile_k != tile_p).sum() + (gid_k != gid_p).sum())
-    bins = bin_lib.bin_gaussians(pre, gx, gy, cap)
     order_p = torch.sort(tile_p, stable=True)[1]
     for f, want in (("tile_id", tile_p[order_p]), ("gauss_id", gid_p[order_p]),
                     ("tile_start", src.tile_start)):
@@ -1121,16 +1232,10 @@ def main():
     k3x = phase_k3x(torch, card, bin_lib, pre, gx, gy, cap)
 
     # ---- 4. K1 against its plain version ----------------------------------
-    feats = torch.cat([pre.rgb, pre.depths[:, None],
-                       T.segment_activation(p.segment),
-                       torch.ones_like(pre.depths[:, None])], dim=1)
-    C = feats.shape[1]
-    table = torch.cat([pre.means2d, pre.conic, pre.opacity[:, None], feats],
-                      dim=1).contiguous()
-    starts, counts = comp.tile_ranges(bins)
-    gid_sorted = bins.gauss_id
-    k1_args = (table, gid_sorted, starts, counts, gx)
-    packed_k = comp.composite_forward(*k1_args)
+    C = w.C
+    table, gid_sorted, starts, counts = w.table, w.gauss_id, w.starts, w.counts
+    k1_args = w.k1_args
+    packed_k = w.packed             # K1's output, from asset_workload
     t0 = time.perf_counter()
     packed_p = comp.composite_forward_plain(*k1_args)
     torch.cuda.synchronize()
@@ -1167,15 +1272,15 @@ def main():
 
     # the (pixel, instance) pairs these inputs need, from the plain version
     t0 = time.perf_counter()
-    tested, contributing, stopping = k1_pair_counts(
-        torch, comp, table, gid_sorted, starts, counts, gx,
-        packed_p[:, C + 1])
+    w.pairs = wl.k1_pair_counts(*k1_args, packed_p[:, C + 1])
+    tested, contributing, stopping = (w.pairs[k] for k in (
+        "tested", "composited", "stopping"))
     print(f"K1 pairs: {tested} tested, {contributing} composited, "
           f"{stopping} stopping ({time.perf_counter() - t0:.1f} s to count)")
 
     # ---- 5. K4 and K2 against their plain versions -------------------------
     k4 = phase_k4(torch, seg_lib, card, gid_sorted, P, comp.ATTR_BASE + C - 1)
-    k2 = phase_k2(torch, comp, card, k1_args, packed_k, P, C,
+    k2 = phase_k2(torch, comp, card, k1_args, packed_k, w.d_packed, P, C,
                   int(packed_p[:, C + 1].sum()), contributing)
 
     # ---- 6. a small scene against the oracle ------------------------------
@@ -1308,18 +1413,20 @@ def main():
          "temperature.gpu", "--format=csv,noheader"], check=True,
         capture_output=True, text=True).stdout.strip())
 
+    # ---- 10. (e) the kernel probes of gsplat_tpu_torch/tools ---------------
+    probe_rows = phase_probes(torch, card, w)
+
     # bounds: each input read once, each output written once
     k3_bytes = 3 * 4 * S + 2 * 4 * cap
     k3_ops = cap * (4 * math.ceil(math.log2(S + 1)) + 12)
-    k3_bound, k3_by = bound_ms(k3_bytes, k3_ops)
+    k3_bound, k3_by = wl.bound_ms(k3_bytes, k3_ops)
     k1_bytes = (table.numel() * 4 + int(counts.sum()) * 4 + 2 * 4 * num_tiles
                 + packed_k.numel() * 4)
-    k1_ops = (K1_TEST_OPS * tested + K1_STEP_OPS * (contributing + stopping)
-              + (1 + 2 * C) * contributing)
-    k1_bound, k1_by = bound_ms(k1_bytes, k1_ops)
+    k1_ops = wl.k1_ops(w.pairs, C)
+    k1_bound, k1_by = wl.bound_ms(k1_bytes, k1_ops)
     print(f"K3 bound: {k3_bytes} bytes, {k3_ops} ops; K1 bound: {k1_bytes} "
-          f"bytes, {k1_ops} ops ({K1_TEST_OPS} per tested pair, "
-          f"{K1_STEP_OPS} more per composited or stopping pair, {1 + 2 * C} "
+          f"bytes, {k1_ops} ops ({wl.K1_TEST_OPS} per tested pair, "
+          f"{wl.K1_STEP_OPS} more per composited or stopping pair, {1 + 2 * C} "
           "more per composited pair)")
     kernels = [
         {"name": "K3 expand", "route": "cuda",
@@ -1347,12 +1454,14 @@ def main():
          "source": "gsplat_tpu_torch/csrc/expand.cu",
          "replaces": "gsplat_tpu/ops/binning.py:84 (n_extra > 0)",
          "launches": trainer_launches["expand_extras"], **k3x},
+        *probe_rows,
     ]
     print(f"launches: K3 and K1 from the one render, K2 and K4 from the "
           f"{train_steps} training steps (K3 and K1 also ran "
           f"{train_launches['expand']} and "
           f"{train_launches['composite_forward']} times there), K3x from "
-          f"the {TRAINER_ITERS} Trainer iterations with exact cull")
+          f"the {TRAINER_ITERS} Trainer iterations with exact cull, P1 to P4 "
+          "from the six entry modules of gsplat_tpu_torch.tools (phase e)")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

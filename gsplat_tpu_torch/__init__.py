@@ -25,6 +25,9 @@ Ported so far (the serving path, ``renderer.render``; the training step,
 - ``train``   : losses, learning-rate schedules, the train step, ``Trainer``
 - ``config``  : the argparse parameter groups
 - ``scripts`` : ``train``
+- ``tools``   : the kernel probes (P1 to P4: K1 and K2 under knockouts,
+                K1's loads against its math, an in-kernel gather, f32
+                against bf16x2), ``python -m gsplat_tpu_torch.tools.bench_*``
 
 Entry points run on the card (``device="cuda"``) unless the caller asks for
 the CPU, where every kernel wrapper uses its plain PyTorch version.

@@ -31,7 +31,8 @@ CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 LIB_PATH = os.path.join(BUILD_DIR, "libgsplat_kernels.so")
 SOURCES = ("common.cu", "expand.cu", "composite_fwd.cu", "composite_bwd.cu",
-           "segsum.cu")
+           "segsum.cu", "probe_fwd.cu", "probe_bwd.cu", "probe_load.cu",
+           "probe_dtype.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",
@@ -46,7 +47,10 @@ NVCC_FLAGS = (
 )
 
 launch_counts = {"expand": 0, "expand_extras": 0, "composite_forward": 0,
-                 "composite_backward": 0, "segment_sum": 0}
+                 "composite_backward": 0, "segment_sum": 0,
+                 # the kernel probes of gsplat_tpu_torch/tools (P1 to P4)
+                 "probe_forward": 0, "probe_backward": 0, "probe_load": 0,
+                 "probe_dtype": 0}
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
@@ -68,6 +72,20 @@ SIGNATURES = {
                                   _I, _VP, _VP, _VP, _VP),
     # vals, sids, perm (or null), I, R, num_segments, out, stream
     "gsplat_segment_sum": (_VP, _VP, _VP, _I, _I, _I, _VP, _VP),
+    # variant, then gsplat_composite_forward's arguments
+    "gsplat_probe_forward": (_I, _VP, _I, _I, _VP, _VP, _VP, _I, _I, _I, _I,
+                             _VP, _VP),
+    # variant, then gsplat_composite_backward's arguments
+    "gsplat_probe_backward": (_I, _VP, _I, _I, _I, _VP, _VP, _VP, _I, _I, _I,
+                              _I, _VP, _VP, _VP, _VP),
+    # variant, table, P, C, gauss_id, starts, counts, limits (or null),
+    # num_tiles, grid_x, tile_x, tile_y, out, stream
+    "gsplat_probe_load": (_I, _VP, _I, _I, _VP, _VP, _VP, _VP, _I, _I, _I, _I,
+                          _VP, _VP),
+    # variant, src, P, R, ids (or null), I, out, stream
+    "gsplat_probe_gather": (_I, _VP, _I, _I, _VP, _I, _VP, _VP),
+    # variant, x, n, n_programs, n_iters, out, stream
+    "gsplat_probe_dtype": (_I, _VP, _I, _I, _I, _VP, _VP),
 }
 
 _lock = threading.Lock()

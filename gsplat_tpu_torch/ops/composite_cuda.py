@@ -169,6 +169,24 @@ def _check_tile_inputs(table, gauss_id, starts, counts, grid_x: int):
         f"{num_tiles} tiles do not form rows of grid_x={grid_x}")
 
 
+def _check_backward_inputs(table, gauss_id, starts, counts, grid_x: int,
+                           packed, d_packed, Cg: int):
+    """What K2 takes beyond K1's inputs: ``Cg`` and the two packed arrays."""
+    req = _kernels.require
+    _check_tile_inputs(table, gauss_id, starts, counts, grid_x)
+    num_tiles = starts.shape[0]
+    C = table.shape[1] - ATTR_BASE
+    req(0 <= Cg <= C, f"Cg={Cg} outside [0, C={C}]")
+    for name, t in (("packed", packed), ("d_packed", d_packed)):
+        req(t.dtype == torch.float32, f"{name} must be float32, got {t.dtype}")
+        req(t.shape == (num_tiles, C + 2, TILE_PIX),
+            f"{name} must be [{num_tiles}, {C + 2}, {TILE_PIX}], got "
+            f"{tuple(t.shape)}")
+        req(t.is_contiguous(), f"{name} must be contiguous")
+        req(t.device == table.device,
+            f"{name} is on {t.device}, expected {table.device}")
+
+
 def composite_forward(table, gauss_id, starts, counts, grid_x: int):
     """K1 wrapper: packed [T, C+2, TILE_PIX] f32 (C composited channels,
     T_final, n_contrib) for the per-gaussian attribute ``table`` [P, 6+C]
@@ -287,18 +305,11 @@ def composite_backward(table, gauss_id, starts, counts, grid_x: int,
     CUDA tensor launches ``csrc/composite_bwd.cu``."""
     dev = table.device
     req = _kernels.require
-    _check_tile_inputs(table, gauss_id, starts, counts, grid_x)
+    _check_backward_inputs(table, gauss_id, starts, counts, grid_x, packed,
+                           d_packed, Cg)
     num_tiles = starts.shape[0]
     P, R = table.shape
     C = R - ATTR_BASE
-    req(0 <= Cg <= C, f"Cg={Cg} outside [0, C={C}]")
-    for name, t in (("packed", packed), ("d_packed", d_packed)):
-        req(t.dtype == torch.float32, f"{name} must be float32, got {t.dtype}")
-        req(t.shape == (num_tiles, C + 2, TILE_PIX),
-            f"{name} must be [{num_tiles}, {C + 2}, {TILE_PIX}], got "
-            f"{tuple(t.shape)}")
-        req(t.is_contiguous(), f"{name} must be contiguous")
-        req(t.device == dev, f"{name} is on {t.device}, expected {dev}")
     if dev.type == "cpu":
         return composite_backward_plain(table, gauss_id, starts, counts,
                                         grid_x, packed, d_packed, Cg)

@@ -1,8 +1,9 @@
 """The training command line of the port on the CPU: its parser against
 the JAX CLI's, what it refuses, the ``Trainer``'s STOP file, and
 ``scripts/train.py`` end to end with exact cull on
-``make_synthetic_scene.make_scene``'s NeRFstudio scene (48x48, 150
-gaussians, 6 cameras), writing the files the JAX CLI writes."""
+``make_synthetic_scene.make_scene``'s NeRFstudio scene, written with the
+port (``torch_helpers.make_scene_port``: 48x48, 150 gaussians, 6
+cameras), writing the files the JAX CLI writes."""
 import argparse
 import json
 import os

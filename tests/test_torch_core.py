@@ -139,7 +139,15 @@ def test_import_is_jax_free():
             "gsplat_tpu_torch.models.densify, gsplat_tpu_torch.config, "
             "gsplat_tpu_torch.data.ply, gsplat_tpu_torch.data.colmap, "
             "gsplat_tpu_torch.data.readers, gsplat_tpu_torch.data.scene, "
-            "gsplat_tpu_torch.scripts.train\n"
+            "gsplat_tpu_torch.scripts.train, gsplat_tpu_torch.tools, "
+            "gsplat_tpu_torch.tools.probes, gsplat_tpu_torch.tools.timing, "
+            "gsplat_tpu_torch.tools.workload, "
+            "gsplat_tpu_torch.tools.bench_fwd_attrib, "
+            "gsplat_tpu_torch.tools.bench_bwd_attrib, "
+            "gsplat_tpu_torch.tools.bench_kernels, "
+            "gsplat_tpu_torch.tools.bench_dma_overhead, "
+            "gsplat_tpu_torch.tools.bench_inkernel_gather, "
+            "gsplat_tpu_torch.tools.bench_vpu_dtype\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'gsplat_tpu' or m.startswith('gsplat_tpu.')]\n"
             "assert not bad, bad\n")
@@ -196,6 +204,17 @@ def test_device_defaults_to_cuda():
         trainer.make_train_step(RasterizeConfig(width=32, height=32),
                                 OptimizationParams(), 3, None, False,
                                 np.zeros(3, np.float32))
+    # the kernel probes' entry modules measure, so they need the card
+    from gsplat_tpu_torch.tools import (bench_bwd_attrib, bench_dma_overhead,
+                                        bench_fwd_attrib,
+                                        bench_inkernel_gather, bench_kernels,
+                                        bench_vpu_dtype, timing)
+    for mod in (bench_fwd_attrib, bench_bwd_attrib, bench_kernels,
+                bench_dma_overhead, bench_inkernel_gather, bench_vpu_dtype):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            mod.main()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        timing.cuda_device("cpu")
 
 
 def test_kernel_wrappers_validate_inputs():
@@ -218,3 +237,17 @@ def test_kernel_wrappers_validate_inputs():
         composite_backward(table, i32, i32, i32, 1, packed, packed, 4)
     with pytest.raises(ValueError, match="d_packed must be"):
         composite_backward(table, i32, i32, i32, 1, packed, packed[:, :4], 3)
+    # the kernel probes share these checks and add their own
+    from gsplat_tpu_torch.tools import probes
+    with pytest.raises(ValueError, match="unknown variant"):
+        probes.probe_forward("no_such", table, i32, i32, i32, 1)
+    with pytest.raises(ValueError, match="d_packed must be"):
+        probes.probe_backward("base", table, i32, i32, i32, 1, packed,
+                              packed[:, :4], 3)
+    with pytest.raises(ValueError, match="limits"):
+        probes.probe_load("load_only", table, i32, i32, i32, 1,
+                          limits=torch.zeros(2, dtype=torch.int32))
+    with pytest.raises(ValueError, match="takes ids"):
+        probes.probe_gather("block_copy", table, i32)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        probes.probe_dtype(torch.zeros(4, dtype=torch.float64))

@@ -1,6 +1,7 @@
 """Scene loading, PLY export and checkpoints of the port on the CPU against
 the JAX package, on ``make_synthetic_scene.make_scene``'s NeRFstudio scene
-(48x48, 150 gaussians, 6 cameras with depth and segment labels)."""
+written with the port (``torch_helpers.make_scene_port``: 48x48, 150
+gaussians, 6 cameras with depth and segment labels)."""
 import os
 import random
 

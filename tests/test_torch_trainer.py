@@ -2,7 +2,8 @@
 against the JAX ``Trainer``'s methods on the same scene and model, a short
 exact-cull run whose loss falls and whose densification fires, and an
 undersized capacity that regrows (``make_synthetic_scene.make_scene``'s
-scene, 48x48, 150 gaussians, 6 cameras)."""
+scene written with the port, ``torch_helpers.make_scene_port``: 48x48,
+150 gaussians, 6 cameras)."""
 import json
 
 import numpy as np

@@ -169,15 +169,93 @@ def tree_np(tree):
 SCENE_CLASSES = 2
 
 
+def make_scene_port(out_dir, n_gauss=150, n_cams=6, width=48, height=48,
+                    num_class=SCENE_CLASSES, seed=0):
+    """``make_synthetic_scene.make_scene(..., with_depth=True)`` written with
+    the port: the same seeded cloud and orbiting cameras, ground truth from
+    the port's O(P*H*W) oracle (``ops/composite_ref.py``) on the CPU, the
+    same files (images, 16-bit depth, segment labels, transforms.json,
+    points3d.ply).  The JAX original composites with eager JAX ops, about
+    ten seconds for this scene; this takes well under one."""
+    import json
+    import os
+
+    from PIL import Image
+
+    from gsplat_tpu_torch.core import sh as sh_lib
+    from gsplat_tpu_torch.core.cameras import Camera, fov2focal
+    from gsplat_tpu_torch.data.readers import store_ply
+    from gsplat_tpu_torch.ops import preprocess as tpre
+    from gsplat_tpu_torch.ops.composite_ref import composite_reference
+
+    rng = np.random.default_rng(seed)
+    for sub in ("images", "depth", "segment"):
+        os.makedirs(os.path.join(out_dir, sub), exist_ok=True)
+    n = n_gauss
+    pts = rng.standard_normal((n, 3)).astype(np.float32) * 0.8
+    cols = rng.uniform(0.1, 0.9, (n, 3)).astype(np.float32)
+    scales = np.exp(rng.standard_normal((n, 3)).astype(np.float32) * 0.3
+                    - 2.2)
+    quats = rng.standard_normal((n, 4)).astype(np.float32)
+    opac = rng.uniform(0.5, 0.95, n).astype(np.float32)
+    labels = rng.integers(0, num_class, n)
+    seg_probs = np.full((n, num_class), 0.05, np.float32)
+    seg_probs[np.arange(n), labels] = 0.95
+    shs = np.zeros((n, 16, 3), np.float32)
+    shs[:, 0] = sh_lib.rgb_to_sh(cols)
+    fovx = math.radians(60.0)
+    fovy = 2 * math.atan(math.tan(fovx / 2) * height / width)
+    t = [torch.from_numpy(a) for a in (pts, scales, quats, opac, shs)]
+    frames = []
+    for i in range(n_cams):
+        ang = 2 * math.pi * i / n_cams
+        campos = np.array([4 * math.sin(ang), 0.6, 4 * math.cos(ang)])
+        fwd = -campos / np.linalg.norm(campos)
+        right = np.cross(fwd, np.array([0.0, 1.0, 0.0]))
+        right /= np.linalg.norm(right)
+        up = np.cross(fwd, right)
+        up /= np.linalg.norm(up)
+        r_w2c = np.stack([right, up, fwd], axis=0)
+        t_w2c = -r_w2c @ campos
+        cam = Camera(colmap_id=i, R=r_w2c.T, T=t_w2c, FoVx=fovx, FoVy=fovy,
+                     image=np.zeros((3, height, width), np.float32),
+                     image_name=f"frame_{i:03d}", uid=i)
+        pre = tpre.preprocess(*t, 3, *[torch.from_numpy(np.array(m)) for m in (
+            cam.world_view_transform, cam.full_proj_transform,
+            cam.camera_center)], cam.tan_fovx, cam.tan_fovy, width, height)
+        ref = composite_reference(pre, width, height, torch.zeros(3),
+                                  segments=torch.from_numpy(seg_probs))
+        name = f"frame_{i:03d}.png"
+        img = ref["render"].clamp(0, 1).permute(1, 2, 0).numpy()
+        Image.fromarray((img * 255).astype(np.uint8)).save(
+            os.path.join(out_dir, "images", name))
+        d = ref["depth"].numpy()
+        Image.fromarray((d / (d.max() + 1e-9) * 65535).astype(np.uint16)).save(
+            os.path.join(out_dir, "depth", name))
+        Image.fromarray(ref["segment"].argmax(0).numpy().astype(np.uint8)).save(
+            os.path.join(out_dir, "segment", name))
+        w2c = np.eye(4)
+        w2c[:3, :3], w2c[:3, 3] = r_w2c, t_w2c
+        c2w = np.linalg.inv(w2c)
+        c2w[:, 1:3] *= -1          # the readers flip NeRF axes back
+        frames.append({"file_path": f"images/{name}",
+                       "transform_matrix": c2w.tolist()})
+    with open(os.path.join(out_dir, "transforms.json"), "w") as f:
+        json.dump({"fl_x": fov2focal(fovx, width),
+                   "fl_y": fov2focal(fovy, height), "w": width, "h": height,
+                   "cx": width / 2, "cy": height / 2, "frames": frames},
+                  f, indent=1)
+    store_ply(os.path.join(out_dir, "points3d.ply"), pts,
+              (cols * 255).astype(np.uint8))
+    return out_dir
+
+
 @pytest.fixture(scope="module")
 def scene_dir(tmp_path_factory):
-    """``make_synthetic_scene.make_scene``'s NeRFstudio scene at 48x48: 150
-    gaussians, 6 cameras with depth and segment labels (once per file)."""
-    from make_synthetic_scene import make_scene
-    d = str(tmp_path_factory.mktemp("synth"))
-    make_scene(d, n_gauss=150, n_cams=6, width=48, height=48,
-               num_class=SCENE_CLASSES, with_depth=True)
-    return d
+    """``make_synthetic_scene.make_scene``'s NeRFstudio scene at 48x48,
+    written with the port (``make_scene_port``): 150 gaussians, 6 cameras
+    with depth and segment labels (once per file)."""
+    return make_scene_port(str(tmp_path_factory.mktemp("synth")))
 
 
 def dataset_args(scene_dir, model_path):
