@@ -1436,14 +1436,14 @@ def main():
          "ms": stage_ms["K3 kernel alone"], "plain_ms": k3_plain_ms,
          "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": None},
         {"name": "K1 composite_forward", "route": "cuda",
-         "source": "gsplat_tpu_torch/csrc/composite_fwd.cu",
+         "source": "gsplat_tpu_torch/csrc/composite_fwd.cuh",
          "replaces": "gsplat_tpu/ops/composite_pallas.py:247",
          "launches": launches["composite_forward"],
          "max_abs_err": k1_err, "ms": stage_ms["K1 kernel alone"],
          "plain_ms": k1_plain_ms, "bound_ms": k1_bound, "bound_by": k1_by,
          "library_ms": None},
         {"name": "K2 composite_backward", "route": "cuda",
-         "source": "gsplat_tpu_torch/csrc/composite_bwd.cu",
+         "source": "gsplat_tpu_torch/csrc/composite_bwd.cuh",
          "replaces": "gsplat_tpu/ops/composite_pallas.py:356",
          "launches": train_launches["composite_backward"], **k2},
         {"name": "K4 segment_sum_sorted", "route": "cuda",

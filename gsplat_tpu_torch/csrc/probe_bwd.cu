@@ -7,378 +7,18 @@
 // composite_pallas._backward_kernel and _bwd_kernel_B (:170, the
 // pixel-moment basis).
 //
-// What it computes.  K2's body (csrc/composite_bwd.cu, which the comments
-// there describe) with one piece changed per variant.  Each variant writes
-// K2's per-instance rows d_inst [I, 6+Cg]; what each column holds is
-// defined by the plain version (gsplat_tpu_torch/tools/probes.py::
-// probe_backward_plain):
-//   base           K2 itself: under the library's --fmad=false build its
-//                  rows are K2's bit for bit.
-//   moments_basis  the TPU's pixel-moment form (bench_bwd_attrib.py:128-156,
-//                  bench_kernels.py::_bwd_kernel_B): the warps sum the raw
-//                  moments M0..M5 of dpow over the tile-local basis
-//                  (1, qx, qy, qx^2, qy^2, qx qy) instead of the five
-//                  products of dx and dy, and each instance recombines them
-//                  with its tile-relative mean (xr, yr):
-//                    sx = xr M0 - M1, sy = yr M0 - M2,
-//                    sxx = xr^2 M0 - 2 xr M1 + M3,
-//                    sxy = xr yr M0 - xr M2 - yr M1 + M5,
-//                    syy = yr^2 M0 - 2 yr M2 + M4.
-//   exp            the Gaussian as expf(power) where K2 (like the package
-//                  since composite_pallas.py:160-163) takes
-//                  exp2f(power log2 e): the tool's exp2 knob, turned round.
-//   no_alpha       no Gaussian: raw = opacity (no power, no exp2, no
-//                  power > 0 test), so every pair up to n_contrib whose
-//                  opacity passes the 1/255 test takes part.  It composites
-//                  more pairs than base: base - no_alpha is a lower bound on
-//                  what the alpha recompute costs.
-//   no_moments     the five moment products are not formed: each warp sums
-//                  dpow alone (one 5-step shuffle instead of an 8-value tree):
-//                  columns 0..4 hold the sum of dpow, column 5 that sum over
-//                  the opacity (base's d opacity).
-//   no_dfeat       the Cg feature sums are not formed: each warp sums w
-//                  alone; feature column 0 holds the sum of w, the others
-//                  zero.
-// Every knockout still writes rows that depend on what it kept.
+// What it computes: K2's kernel (composite_bwd.cuh) in one of its variants,
+// which that file describes; `base` is K2's own form.  The plain version is
+// gsplat_tpu_torch/tools/probes.py::probe_backward_plain.
 //
-// Design: K2's, unchanged (one CTA per tile, one thread per pixel, batches
-// of 64 instances, a warp vote, shuffle trees into per-warp slots, no
-// atomics on global memory).  Compiled for C = 7 (the training path's
-// channels) and for a runtime C, the two forms the probes run.
+// Compiled for C = 7 (the training path's channels) and for a runtime C, the
+// two forms the probes run.
 //
 // Bound on the H100: operations, as K2's; chip_smoke.py counts each
 // variant's own pairs.
-#include <cuda_runtime.h>
+#include "composite_bwd.cuh"
 
 namespace {
-
-constexpr int kMaxThreads = 1024;  // TILE_X * TILE_Y must not exceed this
-constexpr int kMaxWarps = kMaxThreads / 32;
-constexpr int kBatch = 64;         // instances staged per round, as K2
-constexpr int kGeo = 6;            // mean x, mean y, conic a, b, c, opacity
-constexpr unsigned kFull = 0xffffffffu;
-constexpr float kAlphaMax = 0.99f;
-constexpr float kAlphaMin = 1.0f / 255.0f;
-constexpr float kLog2e = 1.4426950408889634f;
-
-enum Variant {
-  kBase = 0,
-  kMomentsBasis,
-  kExp,
-  kNoAlpha,
-  kNoMoments,
-  kNoDfeat,
-  kNumVariants
-};
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(kFull, x, off);
-  return x;
-}
-
-// K2's eight-value tree (csrc/composite_bwd.cu::warp_sum8): lane l returns
-// the warp's total of v[l >> 2].
-__device__ __forceinline__ float warp_sum8(const float (&v)[8], int lane) {
-  float a[4];
-  float b[2];
-  bool up = (lane & 16) != 0;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float send = up ? v[i] : v[i + 4];
-    const float keep = up ? v[i + 4] : v[i];
-    a[i] = keep + __shfl_xor_sync(kFull, send, 16);
-  }
-  up = (lane & 8) != 0;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const float send = up ? a[i] : a[i + 2];
-    const float keep = up ? a[i + 2] : a[i];
-    b[i] = keep + __shfl_xor_sync(kFull, send, 8);
-  }
-  up = (lane & 4) != 0;
-  const float send = up ? b[0] : b[1];
-  const float keep = up ? b[1] : b[0];
-  float c = keep + __shfl_xor_sync(kFull, send, 4);
-  c += __shfl_xor_sync(kFull, c, 2);
-  c += __shfl_xor_sync(kFull, c, 1);
-  return c;
-}
-
-template <int CT, int V>
-__global__ void __launch_bounds__(kMaxThreads)
-probe_backward_kernel(const float* __restrict__ table, int P, int C, int Cg,
-                      const int* __restrict__ gauss_id,
-                      const int* __restrict__ starts,
-                      const int* __restrict__ counts, int grid_x, int tile_x,
-                      int tile_y, const float* __restrict__ packed,
-                      const float* __restrict__ d_packed,
-                      float* __restrict__ d_inst) {
-  extern __shared__ float smem[];
-  const int nc = CT > 0 ? CT : C;
-  const int row = kGeo + nc;
-  const int nout = kGeo + Cg;
-  const int npix = tile_x * tile_y;  // a multiple of 32 (checked by the host)
-  const int nwarps = npix >> 5;
-  float* s_rows = smem;                                  // [kBatch][row]
-  float* s_sum = s_rows + kBatch * row;                  // [kBatch][nout]
-  float* s_part = s_sum + kBatch * nout;                 // [nwarps][kBatch][nout]
-  int* s_gid = reinterpret_cast<int*>(s_part + nwarps * kBatch * nout);
-  unsigned* s_mask = reinterpret_cast<unsigned*>(s_gid + kBatch);  // [kBatch]
-  int* s_red = reinterpret_cast<int*>(s_mask + kBatch);  // [kMaxWarps]
-
-  const int t = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int ox = (t % grid_x) * tile_x;
-  const int oy = (t / grid_x) * tile_y;
-  const float px = static_cast<float>(ox + tid % tile_x);
-  const float py = static_cast<float>(oy + tid / tile_x);
-  // the tile-local basis of moments_basis
-  const float qx = static_cast<float>(tid % tile_x);
-  const float qy = static_cast<float>(tid / tile_x);
-  const int start = starts[t];
-  const int count = counts[t];
-  const size_t tile_off = static_cast<size_t>(t) * (nc + 2) * npix;
-  const float* fwd_t = packed + tile_off;
-  const float* dpk_t = d_packed + tile_off;
-
-  const int ncontrib = static_cast<int>(fwd_t[(nc + 1) * npix + tid]);
-  const float bg_term = fwd_t[nc * npix + tid] * dpk_t[nc * npix + tid];
-  constexpr int kAcc = CT > 0 ? CT : 1;
-  float dout[kAcc];
-  float tot = 0.f;
-  if (CT > 0) {
-#pragma unroll
-    for (int c = 0; c < kAcc; ++c) {
-      dout[c] = dpk_t[c * npix + tid];
-      tot += fwd_t[c * npix + tid] * dout[c];
-    }
-  } else {
-    dout[0] = 0.f;
-    for (int c = 0; c < nc; ++c) {
-      tot += fwd_t[c * npix + tid] * dpk_t[c * npix + tid];
-    }
-  }
-
-  // the warp's and the tile's last contributing position
-  int wmax = ncontrib;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    wmax = max(wmax, __shfl_xor_sync(kFull, wmax, off));
-  }
-  if (lane == 0) s_red[warp] = wmax;
-  __syncthreads();
-  int limit = 0;
-  for (int w = 0; w < nwarps; ++w) limit = max(limit, s_red[w]);
-  limit = min(limit, count);
-
-  float T = 1.f;
-  float pref = 0.f;
-
-  for (int b0 = 0; b0 < limit; b0 += kBatch) {
-    const int nb = min(kBatch, limit - b0);
-    // the previous batch's rows and sums have been consumed
-    __syncthreads();
-    for (int k = tid; k < nb; k += npix) {
-      s_gid[k] = gauss_id[start + b0 + k];
-      s_mask[k] = 0u;
-    }
-    __syncthreads();
-    for (int e = tid; e < nb * row; e += npix) {
-      const int k = e / row;
-      const int col = e - k * row;
-      const int g = s_gid[k];
-      s_rows[e] = (g >= 0 && g < P)
-                      ? __ldg(table + static_cast<size_t>(g) * row + col)
-                      : 0.f;
-    }
-    __syncthreads();
-
-    const int kend = min(nb, wmax - b0);  // the same for the whole warp
-    for (int k = 0; k < kend; ++k) {
-      const int g = s_gid[k];
-      if (g < 0 || g >= P) continue;  // pad sentinel, the same for the CTA
-      const float* r = s_rows + k * row;
-      const float dx = r[0] - px;
-      const float dy = r[1] - py;
-      float raw;
-      bool pass;
-      if (V == kNoAlpha) {
-        raw = r[5];
-        pass = true;
-      } else {
-        const float power =
-            -0.5f * (r[2] * dx * dx + r[4] * dy * dy) - r[3] * dx * dy;
-        raw = V == kExp ? r[5] * expf(power) : r[5] * exp2f(power * kLog2e);
-        pass = power <= 0.f;
-      }
-      const float alpha = fminf(kAlphaMax, raw);
-      const bool contrib =
-          pass && (alpha >= kAlphaMin) && (b0 + k + 1 <= ncontrib);
-      if (__ballot_sync(kFull, contrib) == 0u) continue;
-
-      float w = 0.f;
-      float dpow = 0.f;
-      float geo[8];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) geo[j] = 0.f;
-      if (contrib) {
-        float gdot = 0.f;
-        if (CT > 0) {
-#pragma unroll
-          for (int c = 0; c < kAcc; ++c) gdot += r[kGeo + c] * dout[c];
-        } else {
-          for (int c = 0; c < nc; ++c) {
-            gdot += r[kGeo + c] * dpk_t[c * npix + tid];
-          }
-        }
-        w = alpha * T;
-        pref += w * gdot;
-        const float suffix = tot - pref;
-        const float da = T * gdot - (suffix + bg_term) / (1.f - alpha);
-        dpow = raw < kAlphaMax ? raw * da : 0.f;
-        if (V == kMomentsBasis) {
-          geo[0] = dpow;
-          geo[1] = dpow * qx;
-          geo[2] = dpow * qy;
-          geo[3] = dpow * (qx * qx);
-          geo[4] = dpow * (qy * qy);
-          geo[5] = dpow * (qx * qy);
-        } else if (V != kNoMoments) {
-          const float dpx = dpow * dx;
-          const float dpy = dpow * dy;
-          geo[0] = dpx;
-          geo[1] = dpy;
-          geo[2] = dpx * dx;
-          geo[3] = dpx * dy;
-          geo[4] = dpy * dy;
-          geo[5] = dpow;
-        }
-        T = T * (1.f - alpha);
-      }
-
-      float* part = s_part + (warp * kBatch + k) * nout;
-      const int slot = lane >> 2;  // the value this lane's group sums
-      const bool writer = (lane & 3) == 0;
-      if (V == kNoMoments) {
-        const float s = warp_sum(dpow);
-        if (lane == 0) {
-#pragma unroll
-          for (int j = 0; j < kGeo; ++j) part[j] = s;
-        }
-      } else {
-        const float gsum = warp_sum8(geo, lane);
-        if (writer && slot < kGeo) part[slot] = gsum;
-      }
-      if (V == kNoDfeat) {
-        if (Cg > 0) {
-          const float s = warp_sum(w);
-          if (lane == 0) {
-            part[kGeo] = s;
-            for (int c = 1; c < Cg; ++c) part[kGeo + c] = 0.f;
-          }
-        }
-      } else if (CT > 0) {
-        if (Cg > 0) {
-          float fw[8];
-#pragma unroll
-          for (int c = 0; c < 8; ++c) {
-            fw[c] = (c < kAcc && c < Cg) ? w * dout[c < kAcc ? c : 0] : 0.f;
-          }
-          const float fsum = warp_sum8(fw, lane);
-          if (writer && slot < Cg) part[kGeo + slot] = fsum;
-        }
-      } else {
-        for (int c = 0; c < Cg; ++c) {
-          const float x = warp_sum(w * dpk_t[c * npix + tid]);
-          if (lane == 0) part[kGeo + c] = x;
-        }
-      }
-      if (lane == 0) atomicOr(s_mask + k, 1u << warp);
-    }
-    __syncthreads();
-
-    // per-instance sums over the warps that took part, in warp order
-    for (int e = tid; e < nb * nout; e += npix) {
-      const int k = e / nout;
-      const int j = e - k * nout;
-      unsigned m = s_mask[k];
-      float s = 0.f;
-      while (m) {
-        const int w = __ffs(m) - 1;
-        m &= m - 1u;
-        s += s_part[(w * kBatch + k) * nout + j];
-      }
-      s_sum[e] = s;
-    }
-    __syncthreads();
-    for (int e = tid; e < nb * nout; e += npix) {
-      const int k = e / nout;
-      const int j = e - k * nout;
-      const float* r = s_rows + k * row;
-      const float* q = s_sum + k * nout;
-      float o;
-      if (V == kMomentsBasis && j < kGeo) {
-        // q = M0..M5 over (1, qx, qy, qx^2, qy^2, qx qy)
-        const float xr = r[0] - static_cast<float>(ox);
-        const float yr = r[1] - static_cast<float>(oy);
-        const float sx = xr * q[0] - q[1];
-        const float sy = yr * q[0] - q[2];
-        switch (j) {
-          case 0: o = -(r[2] * sx + r[3] * sy); break;
-          case 1: o = -(r[4] * sy + r[3] * sx); break;
-          case 2: o = -0.5f * (xr * xr * q[0] - 2.f * xr * q[1] + q[3]); break;
-          case 3: o = -(xr * yr * q[0] - xr * q[2] - yr * q[1] + q[5]); break;
-          case 4: o = -0.5f * (yr * yr * q[0] - 2.f * yr * q[2] + q[4]); break;
-          default: o = r[5] > 0.f ? q[0] / r[5] : 0.f; break;
-        }
-      } else if (V == kNoMoments && j < kGeo) {
-        o = j == 5 ? (r[5] > 0.f ? q[5] / r[5] : 0.f) : q[j];
-      } else {
-        // q = sx, sy, sxx, sxy, syy, s0, feats
-        switch (j) {
-          case 0: o = -(r[2] * q[0] + r[3] * q[1]); break;
-          case 1: o = -(r[4] * q[1] + r[3] * q[0]); break;
-          case 2: o = -0.5f * q[2]; break;
-          case 3: o = -q[3]; break;
-          case 4: o = -0.5f * q[4]; break;
-          case 5: o = r[5] > 0.f ? q[5] / r[5] : 0.f; break;
-          default: o = q[j]; break;
-        }
-      }
-      d_inst[static_cast<size_t>(start + b0 + k) * nout + j] = o;
-    }
-  }
-}
-
-size_t smem_bytes(int C, int Cg, int npix) {
-  const size_t row = kGeo + C;
-  const size_t nout = kGeo + Cg;
-  const size_t nwarps = npix / 32;
-  return (kBatch * row + kBatch * nout + nwarps * kBatch * nout) *
-             sizeof(float) +
-         2 * kBatch * sizeof(int) + kMaxWarps * sizeof(int);
-}
-
-template <int CT, int V>
-int launch(const float* table, int P, int C, int Cg, const int* gauss_id,
-           const int* starts, const int* counts, int num_tiles, int grid_x,
-           int tile_x, int tile_y, const float* packed, const float* d_packed,
-           float* d_inst, cudaStream_t stream) {
-  const size_t smem = smem_bytes(C, Cg, tile_x * tile_y);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        probe_backward_kernel<CT, V>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  probe_backward_kernel<CT, V><<<num_tiles, tile_x * tile_y, smem, stream>>>(
-      table, P, C, Cg, gauss_id, starts, counts, grid_x, tile_x, tile_y,
-      packed, d_packed, d_inst);
-  return static_cast<int>(cudaGetLastError());
-}
 
 template <int CT>
 int launch_variant(int variant, const float* tb, int P, int C, int Cg,
@@ -388,10 +28,10 @@ int launch_variant(int variant, const float* tb, int P, int C, int Cg,
                    cudaStream_t s) {
 #define GSPLAT_P2_CASE(V)                                                    \
   case V:                                                                    \
-    return launch<CT, V>(tb, P, C, Cg, gid, st, ct, num_tiles, grid_x,       \
-                         tile_x, tile_y, pk, dp, o, s)
+    return launch_backward<CT, V>(tb, P, C, Cg, gid, st, ct, num_tiles,      \
+                                  grid_x, tile_x, tile_y, pk, dp, o, s)
   switch (variant) {
-    GSPLAT_P2_CASE(kBase);
+    GSPLAT_P2_CASE(kBwdBase);
     GSPLAT_P2_CASE(kMomentsBasis);
     GSPLAT_P2_CASE(kExp);
     GSPLAT_P2_CASE(kNoAlpha);
@@ -410,7 +50,7 @@ extern "C" int gsplat_probe_backward(
     const void* gauss_id, const void* starts, const void* counts,
     int num_tiles, int grid_x, int tile_x, int tile_y, const void* packed,
     const void* d_packed, void* d_inst, void* stream) {
-  if (variant < 0 || variant >= kNumVariants) {
+  if (variant < 0 || variant >= kNumBwdVariants) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (num_tiles <= 0) return 0;

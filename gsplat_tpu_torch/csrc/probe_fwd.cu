@@ -8,271 +8,18 @@
 // stripped), _fwd_kernel_NOEXP (:359, exp as identity) and _fwd_kernel_R
 // (:416, trimmed bookkeeping).
 //
-// What it computes.  K1's body (csrc/composite_fwd.cu, which the comments
-// there describe) with one piece of the port's K1 changed per variant.
-// Each variant writes K1's [T, C+2, TILE_PIX] layout; what each row holds
-// is defined by the plain version (gsplat_tpu_torch/tools/probes.py::
-// probe_forward_plain):
-//   base             K1 itself, the same expressions in the same order; under
-//                    the library's --fmad=false build its output is K1's bit
-//                    for bit.
-//   no_cond          no early exit: the CTA's __syncthreads_count(done) vote
-//                    and the per-pixel break are gone; a finished pixel keeps
-//                    testing and updating, with its update masked to zero
-//                    (the TPU's `where(~done)`).  Output equal to base.
-//   no_scan          the transmittance update T = T (1 - alpha) is removed:
-//                    T stays 1, so w = alpha and no pixel terminates (every
-//                    pixel walks its whole tile; compare with no_cond).
-//   no_matmul        the C-channel accumulation becomes one channel, the sum
-//                    of the weights w (row 0; rows 1..C-1 are zero).
-//   no_minmax        the n_contrib bookkeeping (`last`) is dropped: row C+1
-//                    is zero.
-//   alpha_only       power, alpha and the two skip tests only, and one add:
-//                    row 0 is the sum of the passing alphas, row C is 1, the
-//                    rest zero; no transmittance, no termination.
-//   quad_power       the TPU's mxu_power form (composite_pallas.py:130-151):
-//                    per-instance coefficients in tile-relative coordinates
-//                    (formed once per staged batch) times the per-pixel basis
-//                    (1, qx, qy, qx^2, qy^2, qx qy), summed as six products,
-//                    with the power > 1e-4 skip (:172).  A plain product,
-//                    not a tensor-core mma.
-//   stripped         no termination test, no done state, no `last`: the
-//                    transmittance recurrence and the C channels only (row
-//                    C+1 zero); every pixel walks its whole tile.
-//   no_exp           stripped with exp2 replaced by 1 + power (costs the
-//                    special-function unit; compare with stripped).
-//   trim_bookkeeping base's output with less bookkeeping: no branch on the
-//                    pad sentinel (its staged row is zeros, whose alpha fails
-//                    the 1/255 test) and the done flag kept as the sign of T.
-// Every knockout still writes an output that depends on what it kept, so
-// nvcc cannot delete the work it measures.
+// What it computes: K1's kernel (composite_fwd.cuh) in one of its first ten
+// variants, which that file describes; `base` is K1's own form.  The plain
+// version is gsplat_tpu_torch/tools/probes.py::probe_forward_plain.
 //
-// Design: K1's, unchanged (one CTA per tile, one thread per pixel, batches
-// of 256 instances staged in shared memory straight from the [P, 6+C]
-// table).  Compiled for C = 7 (the training path's channels) and for a
-// runtime C, the two forms the probes run.
+// Compiled for C = 7 (the training path's channels) and for a runtime C, the
+// two forms the probes run.
 //
 // Bound on the H100: operations, as K1's (chip_smoke.py counts each
 // variant's own walk: pairs tested, passing and composited).
-#include <cuda_runtime.h>
+#include "composite_fwd.cuh"
 
 namespace {
-
-constexpr int kMaxThreads = 1024;  // TILE_X * TILE_Y must not exceed this
-constexpr int kBatch = 256;        // instances staged per round, as K1
-constexpr int kGeo = 6;            // mean x, mean y, conic a, b, c, opacity
-constexpr int kCoef = 6;           // quad_power coefficients per instance
-constexpr float kAlphaMax = 0.99f;
-constexpr float kAlphaMin = 1.0f / 255.0f;
-constexpr float kTEps = 1e-4f;
-constexpr float kLog2e = 1.4426950408889634f;
-
-enum Variant {
-  kBase = 0,
-  kNoCond,
-  kNoScan,
-  kNoMatmul,
-  kNoMinmax,
-  kAlphaOnly,
-  kQuadPower,
-  kNoExp,
-  kStripped,
-  kTrimBookkeeping,
-  kNumVariants
-};
-
-template <int CT, int V>
-__global__ void __launch_bounds__(kMaxThreads)
-probe_forward_kernel(const float* __restrict__ table, int P, int C,
-                     const int* __restrict__ gauss_id,
-                     const int* __restrict__ starts,
-                     const int* __restrict__ counts, int grid_x, int tile_x,
-                     int tile_y, float* __restrict__ out) {
-  // what each variant keeps
-  constexpr bool kQuad = V == kQuadPower;
-  constexpr bool kStrip = V == kStripped || V == kNoExp;
-  constexpr bool kTerminate = V != kAlphaOnly && !kStrip;
-  constexpr bool kExit = kTerminate && V != kNoCond;
-  constexpr bool kUpdateT = V != kNoScan && V != kAlphaOnly;
-  constexpr bool kOneChannel = V == kNoMatmul || V == kAlphaOnly;
-  constexpr bool kLast = V != kNoMinmax && V != kAlphaOnly && !kStrip;
-  constexpr bool kSentinelBranch = V != kTrimBookkeeping;
-  constexpr float kPowerCut = kQuad ? 1e-4f : 0.f;
-
-  extern __shared__ float smem[];
-  const int nc = CT > 0 ? CT : C;
-  const int row = kGeo + nc;
-  float* s_rows = smem;                                        // [kBatch][row]
-  float* s_coef = s_rows + kBatch * row;       // [kBatch][kCoef], quad only
-  int* s_gid = reinterpret_cast<int*>(s_coef + (kQuad ? kBatch * kCoef : 0));
-
-  const int t = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int npix = tile_x * tile_y;
-  const int ox = (t % grid_x) * tile_x;
-  const int oy = (t / grid_x) * tile_y;
-  const float px = static_cast<float>(ox + tid % tile_x);
-  const float py = static_cast<float>(oy + tid / tile_x);
-  // the tile-local basis of quad_power
-  const float qx = static_cast<float>(tid % tile_x);
-  const float qy = static_cast<float>(tid / tile_x);
-  const float qxx = qx * qx;
-  const float qyy = qy * qy;
-  const float qxy = qx * qy;
-  const int start = starts[t];
-  const int count = counts[t];
-  float* out_t = out + static_cast<size_t>(t) * (nc + 2) * npix;
-
-  constexpr int kAcc = kOneChannel ? 1 : (CT > 0 ? CT : 1);
-  constexpr bool kGlobalAcc = CT == 0 && !kOneChannel;
-  float acc[kAcc];
-#pragma unroll
-  for (int c = 0; c < kAcc; ++c) acc[c] = 0.f;
-  if (kGlobalAcc) {
-    for (int c = 0; c < nc; ++c) out_t[c * npix + tid] = 0.f;
-  }
-
-  float T = 1.f;  // trim_bookkeeping: negative once the pixel is done
-  int last = 0;
-  int done = 0;
-
-  for (int b0 = 0; b0 < count; b0 += kBatch) {
-    if (kExit) {
-      const int finished = V == kTrimBookkeeping ? (T < 0.f) : done;
-      if (__syncthreads_count(finished) == npix) break;
-    } else {
-      __syncthreads();
-    }
-    const int nb = min(kBatch, count - b0);
-    for (int k = tid; k < nb; k += npix) s_gid[k] = gauss_id[start + b0 + k];
-    __syncthreads();
-    for (int e = tid; e < nb * row; e += npix) {
-      const int k = e / row;
-      const int col = e - k * row;
-      const int g = s_gid[k];
-      s_rows[e] = (g >= 0 && g < P)
-                      ? __ldg(table + static_cast<size_t>(g) * row + col)
-                      : 0.f;
-    }
-    if (kQuad) {
-      __syncthreads();
-      // composite_pallas.py:131-140 with tile-relative means xr, yr
-      for (int k = tid; k < nb; k += npix) {
-        const float* r = s_rows + k * row;
-        const float xr = r[0] - static_cast<float>(ox);
-        const float yr = r[1] - static_cast<float>(oy);
-        const float A = r[2];
-        const float B = r[3];
-        const float Cc = r[4];
-        float* q = s_coef + k * kCoef;
-        q[0] = -0.5f * (A * xr * xr + Cc * yr * yr) - B * xr * yr;
-        q[1] = A * xr + B * yr;
-        q[2] = Cc * yr + B * xr;
-        q[3] = -0.5f * A;
-        q[4] = -0.5f * Cc;
-        q[5] = -B;
-      }
-    }
-    __syncthreads();
-    if (kExit) {
-      if (V == kTrimBookkeeping ? (T < 0.f) : (done != 0)) continue;
-    }
-    for (int k = 0; k < nb; ++k) {
-      if (kSentinelBranch) {
-        const int g = s_gid[k];
-        if (g < 0 || g >= P) continue;  // pad sentinel
-      }
-      const float* r = s_rows + k * row;
-      float power;
-      if (kQuad) {
-        const float* q = s_coef + k * kCoef;
-        power = q[0] + q[1] * qx + q[2] * qy + q[3] * qxx + q[4] * qyy +
-                q[5] * qxy;
-      } else {
-        const float dx = r[0] - px;
-        const float dy = r[1] - py;
-        power = -0.5f * (r[2] * dx * dx + r[4] * dy * dy) - r[3] * dx * dy;
-      }
-      const float G = V == kNoExp ? 1.f + power : exp2f(power * kLog2e);
-      const float alpha = fminf(kAlphaMax, r[5] * G);
-      if (!(power <= kPowerCut) || !(alpha >= kAlphaMin)) continue;
-      if (V == kAlphaOnly) {
-        acc[0] += alpha;
-        continue;
-      }
-      const float Tv = V == kTrimBookkeeping ? fabsf(T) : T;
-      const float test_T = Tv * (1.f - alpha);
-      float live = 1.f;  // no_cond: 0 once the pixel is done
-      if (kTerminate) {
-        if (V == kNoCond) {
-          if (done || test_T < kTEps) {
-            done = 1;
-            live = 0.f;
-          }
-        } else if (test_T < kTEps) {
-          if (V == kTrimBookkeeping) {
-            T = -Tv;
-          } else {
-            done = 1;
-          }
-          break;
-        }
-      }
-      const float w = V == kNoCond ? alpha * Tv * live : alpha * Tv;
-      if (kOneChannel) {
-        acc[0] += w;
-      } else if (!kGlobalAcc) {
-#pragma unroll
-        for (int c = 0; c < kAcc; ++c) acc[c] += w * r[kGeo + c];
-      } else {
-        for (int c = 0; c < nc; ++c) out_t[c * npix + tid] += w * r[kGeo + c];
-      }
-      if (kUpdateT) {
-        if (V == kNoCond) {
-          T = live != 0.f ? test_T : T;
-        } else {
-          T = test_T;
-        }
-      }
-      if (kLast) {
-        if (V == kNoCond) {
-          last = live != 0.f ? b0 + k + 1 : last;
-        } else {
-          last = b0 + k + 1;
-        }
-      }
-    }
-  }
-
-  if (kOneChannel) {
-    out_t[tid] = acc[0];
-    for (int c = 1; c < nc; ++c) out_t[c * npix + tid] = 0.f;
-  } else if (!kGlobalAcc) {
-#pragma unroll
-    for (int c = 0; c < kAcc; ++c) out_t[c * npix + tid] = acc[c];
-  }
-  out_t[nc * npix + tid] = V == kTrimBookkeeping ? fabsf(T) : T;
-  out_t[(nc + 1) * npix + tid] = static_cast<float>(last);
-}
-
-template <int CT, int V>
-int launch(const float* table, int P, int C, const int* gauss_id,
-           const int* starts, const int* counts, int num_tiles, int grid_x,
-           int tile_x, int tile_y, float* out, cudaStream_t stream) {
-  const size_t smem =
-      static_cast<size_t>(kBatch) * (kGeo + C) * sizeof(float) +
-      (V == kQuadPower ? kBatch * kCoef * sizeof(float) : 0) +
-      kBatch * sizeof(int);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        probe_forward_kernel<CT, V>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  probe_forward_kernel<CT, V><<<num_tiles, tile_x * tile_y, smem, stream>>>(
-      table, P, C, gauss_id, starts, counts, grid_x, tile_x, tile_y, out);
-  return static_cast<int>(cudaGetLastError());
-}
 
 template <int CT>
 int launch_variant(int variant, const float* tb, int P, int C,
@@ -281,10 +28,10 @@ int launch_variant(int variant, const float* tb, int P, int C,
                    float* o, cudaStream_t s) {
 #define GSPLAT_P1_CASE(V)                                                    \
   case V:                                                                    \
-    return launch<CT, V>(tb, P, C, gid, st, ct, num_tiles, grid_x, tile_x,   \
-                         tile_y, o, s)
+    return launch_forward<CT, V>(tb, P, C, gid, st, ct, num_tiles, grid_x,   \
+                                 tile_x, tile_y, o, s)
   switch (variant) {
-    GSPLAT_P1_CASE(kBase);
+    GSPLAT_P1_CASE(kFwdBase);
     GSPLAT_P1_CASE(kNoCond);
     GSPLAT_P1_CASE(kNoScan);
     GSPLAT_P1_CASE(kNoMatmul);
@@ -307,7 +54,7 @@ extern "C" int gsplat_probe_forward(int variant, const void* table, int P,
                                     const void* starts, const void* counts,
                                     int num_tiles, int grid_x, int tile_x,
                                     int tile_y, void* out, void* stream) {
-  if (variant < 0 || variant >= kNumVariants) {
+  if (variant < 0 || variant >= kComputeResident) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (num_tiles <= 0) return 0;

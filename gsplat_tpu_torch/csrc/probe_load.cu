@@ -10,9 +10,9 @@
 //
 // What it computes (the plain versions in gsplat_tpu_torch/tools/probes.py
 // define every output):
-//   load_only         K1's staging (csrc/composite_fwd.cu): each tile's
-//                     batches of 256 gaussian ids, then their [6+C] rows
-//                     from the table, into shared memory; then one add per
+//   load_only         K1's staging (composite_fwd.cuh::stage_batch): each
+//                     tile's batches of 256 gaussian ids, then their [6+C]
+//                     rows from the table, into shared memory; then one add per
 //                     batch: thread tid adds staged float tid of the batch
 //                     (row-major [nb][6+C], zero past the batch).  Output
 //                     [T, TILE_PIX], each thread's sum.  `limits` (optional)
@@ -21,71 +21,39 @@
 //                     probe reads the bytes K1 reads.
 //   load_only_4tiles  the same, one CTA walking 4 consecutive tiles and
 //                     carrying one sum: output [ceil(T / 4), TILE_PIX].
-//   compute_resident  K1 (base) with its staging replaced: each tile's first
-//                     batch is staged once, and every later batch computes
-//                     on those resident rows (instance k of batch b is the
-//                     first batch's k-th), with K1's termination and exit.
-//                     Output K1's [T, C+2, TILE_PIX].
+//   compute_resident  K1's variant of that name (composite_fwd.cuh): K1
+//                     with each tile's first batch staged once and computed
+//                     for every batch.  Output K1's [T, C+2, TILE_PIX].
 //   row_gather        out[i] = table[ids[i]] for a [P, R] table, each row
 //                     read by id inside the kernel (a zero row for an id
 //                     outside [0, P)): the TPU's per-row indexed DMA.
 //   block_copy        out = src for a contiguous [I, R] block: the
 //                     pre-gathered table's copy, the baseline.
 //
-// Design.  load_only and compute_resident are K1's own code with one side
-// taken away, compiled for C = 7 and a runtime C like P1.  The gather and
-// the copy are grid-stride loops, 16 bytes a thread where the row width
-// allows (R a multiple of 4), else 4.
+// Design.  load_only stages through K1's own stage_batch and
+// compute_resident is K1's kernel itself, so both follow K1; both are
+// compiled for C = 7 and a runtime C like P1.  The gather and the copy are
+// grid-stride loops, 16 bytes a thread where the row width allows (R a
+// multiple of 4), else 4.
 //
 // Bound on the H100: bytes for load_only, row_gather and block_copy (what
 // they read and write once), operations for compute_resident (K1's count on
 // its own walk); chip_smoke.py computes both from the run's inputs.
-#include <cuda_runtime.h>
-
 #include <type_traits>
+
+#include "composite_fwd.cuh"
 
 namespace {
 
-constexpr int kMaxThreads = 1024;
-constexpr int kBatch = 256;        // as K1
-constexpr int kGeo = 6;
 constexpr int kGatherThreads = 256;
-constexpr float kAlphaMax = 0.99f;
-constexpr float kAlphaMin = 1.0f / 255.0f;
-constexpr float kTEps = 1e-4f;
-constexpr float kLog2e = 1.4426950408889634f;
 
-enum Variant {
+enum LoadVariant {
   kLoadOnly = 0,
   kLoadOnly4Tiles,
-  kComputeResident,
+  kLoadComputeResident,
   kRowGather,
-  kBlockCopy,
-  kNumVariants
+  kBlockCopy
 };
-
-// K1's staging of batch [b0, b0 + nb) of the tile starting at `start`.
-template <int CT>
-__device__ __forceinline__ void stage_batch(const float* __restrict__ table,
-                                            int P, int row,
-                                            const int* __restrict__ gauss_id,
-                                            int start, int b0, int nb,
-                                            int npix, float* s_rows,
-                                            int* s_gid) {
-  const int tid = threadIdx.x;
-  for (int k = tid; k < nb; k += npix) s_gid[k] = gauss_id[start + b0 + k];
-  __syncthreads();
-  const int r = CT > 0 ? kGeo + CT : row;
-  for (int e = tid; e < nb * r; e += npix) {
-    const int k = e / r;
-    const int col = e - k * r;
-    const int g = s_gid[k];
-    s_rows[e] = (g >= 0 && g < P)
-                    ? __ldg(table + static_cast<size_t>(g) * r + col)
-                    : 0.f;
-  }
-  __syncthreads();
-}
 
 template <int CT, int TILES>
 __global__ void __launch_bounds__(kMaxThreads)
@@ -98,7 +66,7 @@ probe_load_kernel(const float* __restrict__ table, int P, int C,
   extern __shared__ float smem[];
   const int row = kGeo + (CT > 0 ? CT : C);
   float* s_rows = smem;
-  int* s_gid = reinterpret_cast<int*>(smem + kBatch * row);
+  int* s_gid = reinterpret_cast<int*>(smem + kFwdBatch * row);
   const int tid = threadIdx.x;
   float acc = 0.f;
   for (int i = 0; i < TILES; ++i) {
@@ -107,90 +75,15 @@ probe_load_kernel(const float* __restrict__ table, int P, int C,
     const int start = starts[t];
     const int count = limits != nullptr ? min(limits[t], counts[t])
                                         : counts[t];
-    for (int b0 = 0; b0 < count; b0 += kBatch) {
-      const int nb = min(kBatch, count - b0);
+    for (int b0 = 0; b0 < count; b0 += kFwdBatch) {
+      const int nb = min(kFwdBatch, count - b0);
       __syncthreads();  // the previous batch has been read
-      stage_batch<CT>(table, P, row, gauss_id, start, b0, nb, npix, s_rows,
-                      s_gid);
+      stage_batch(table, P, row, gauss_id, start, b0, nb, npix, s_rows,
+                  s_gid);
       if (tid < nb * row) acc += s_rows[tid];
     }
   }
   out[static_cast<size_t>(blockIdx.x) * npix + tid] = acc;
-}
-
-template <int CT>
-__global__ void __launch_bounds__(kMaxThreads)
-probe_resident_kernel(const float* __restrict__ table, int P, int C,
-                      const int* __restrict__ gauss_id,
-                      const int* __restrict__ starts,
-                      const int* __restrict__ counts, int grid_x, int tile_x,
-                      int tile_y, float* __restrict__ out) {
-  extern __shared__ float smem[];
-  const int nc = CT > 0 ? CT : C;
-  const int row = kGeo + nc;
-  float* s_rows = smem;
-  int* s_gid = reinterpret_cast<int*>(smem + kBatch * row);
-
-  const int t = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int npix = tile_x * tile_y;
-  const float px = static_cast<float>((t % grid_x) * tile_x + tid % tile_x);
-  const float py = static_cast<float>((t / grid_x) * tile_y + tid / tile_x);
-  const int start = starts[t];
-  const int count = counts[t];
-  float* out_t = out + static_cast<size_t>(t) * (nc + 2) * npix;
-
-  constexpr int kAcc = CT > 0 ? CT : 1;
-  float acc[kAcc];
-#pragma unroll
-  for (int c = 0; c < kAcc; ++c) acc[c] = 0.f;
-  if (CT == 0) {
-    for (int c = 0; c < nc; ++c) out_t[c * npix + tid] = 0.f;
-  }
-  float T = 1.f;
-  int last = 0;
-  int done = 0;
-  // the first batch, staged once
-  if (count > 0) {
-    stage_batch<CT>(table, P, row, gauss_id, start, 0, min(kBatch, count),
-                    npix, s_rows, s_gid);
-  }
-  for (int b0 = 0; b0 < count; b0 += kBatch) {
-    if (__syncthreads_count(done) == npix) break;
-    if (done) continue;
-    const int nb = min(kBatch, count - b0);
-    for (int k = 0; k < nb; ++k) {
-      const int g = s_gid[k];
-      if (g < 0 || g >= P) continue;  // pad sentinel
-      const float* r = s_rows + k * row;
-      const float dx = r[0] - px;
-      const float dy = r[1] - py;
-      const float power =
-          -0.5f * (r[2] * dx * dx + r[4] * dy * dy) - r[3] * dx * dy;
-      const float alpha = fminf(kAlphaMax, r[5] * exp2f(power * kLog2e));
-      if (!(power <= 0.f) || !(alpha >= kAlphaMin)) continue;
-      const float test_T = T * (1.f - alpha);
-      if (test_T < kTEps) {
-        done = 1;
-        break;
-      }
-      const float w = alpha * T;
-      if (CT > 0) {
-#pragma unroll
-        for (int c = 0; c < kAcc; ++c) acc[c] += w * r[kGeo + c];
-      } else {
-        for (int c = 0; c < nc; ++c) out_t[c * npix + tid] += w * r[kGeo + c];
-      }
-      T = test_T;
-      last = b0 + k + 1;
-    }
-  }
-  if (CT > 0) {
-#pragma unroll
-    for (int c = 0; c < kAcc; ++c) out_t[c * npix + tid] = acc[c];
-  }
-  out_t[nc * npix + tid] = T;
-  out_t[(nc + 1) * npix + tid] = static_cast<float>(last);
 }
 
 // row_gather (ids != nullptr) or block_copy (ids == nullptr), W floats at a
@@ -254,8 +147,8 @@ int launch_tiles(int variant, const float* tb, int P, int C, const int* gid,
                  cudaStream_t s) {
   const int npix = tile_x * tile_y;
   const size_t smem =
-      static_cast<size_t>(kBatch) * (kGeo + C) * sizeof(float) +
-      kBatch * sizeof(int);
+      static_cast<size_t>(kFwdBatch) * (kGeo + C) * sizeof(float) +
+      kFwdBatch * sizeof(int);
   int err;
   switch (variant) {
     case kLoadOnly:
@@ -269,10 +162,8 @@ int launch_tiles(int variant, const float* tb, int P, int C, const int* gid,
           tb, P, C, gid, st, ct, lim, num_tiles, npix, o);
       break;
     default:
-      if ((err = set_smem(probe_resident_kernel<CT>, smem))) return err;
-      probe_resident_kernel<CT><<<num_tiles, npix, smem, s>>>(
-          tb, P, C, gid, st, ct, grid_x, tile_x, tile_y, o);
-      break;
+      return launch_forward<CT, kComputeResident>(
+          tb, P, C, gid, st, ct, num_tiles, grid_x, tile_x, tile_y, o, s);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -287,7 +178,7 @@ extern "C" int gsplat_probe_load(int variant, const void* table, int P,
                                  const void* limits, int num_tiles,
                                  int grid_x, int tile_x, int tile_y,
                                  void* out, void* stream) {
-  if (variant < kLoadOnly || variant > kComputeResident) {
+  if (variant < kLoadOnly || variant > kLoadComputeResident) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (num_tiles <= 0) return 0;

@@ -31,7 +31,7 @@ TILE_PIX = TILE_X * TILE_Y
 ATTR_BASE = 6      # table columns: mean x, mean y, conic a, b, c, opacity
 CHUNK = 128        # instances per step of the plain version
 LOG2E = 1.4426950408889634
-_KERNEL_BATCH = 256                 # kBatch in composite_fwd.cu
+_KERNEL_BATCH = 256                 # kFwdBatch in composite_fwd.cuh
 _MAX_THREADS = 1024                 # one thread per tile pixel in K1 and K2
 _SMEM_LIMIT = 232448                # bytes of shared memory a CTA can use
 

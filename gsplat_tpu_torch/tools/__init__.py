@@ -10,7 +10,8 @@ the 16-bit elementwise rate.  Each Pallas kernel of those scripts is a
 hand-written CUDA kernel here (``csrc/probe_fwd.cu`` P1,
 ``probe_bwd.cu`` P2, ``probe_load.cu`` P3, ``probe_dtype.cu`` P4), each a
 template over its variants with a plain PyTorch version of every variant
-(``probes.py``).
+(``probes.py``); P1's and P2's variants are those of K1's and K2's own
+kernel templates.
 
 - ``timing``    : CUDA-event timing and the card's name and power limit
 - ``workload``  : K1's and K2's real inputs at the 1080p asset, the

@@ -1,10 +1,13 @@
 """Wrappers and plain versions of the kernel probes P1 to P4.
 
-P1 (``csrc/probe_fwd.cu``) is K1 under knockouts, P2 (``probe_bwd.cu``)
-K2 under knockouts, P3 (``probe_load.cu``) K1's loads apart from its math
-and an in-kernel gather, P4 (``probe_dtype.cu``) an elementwise op mix in
-float32 and packed bfloat16.  The CUDA sources say what each variant keeps
-and removes; the plain PyTorch versions here define every output.
+P1 (``csrc/probe_fwd.cu``) is K1's own kernel under knockouts, P2
+(``probe_bwd.cu``) K2's, P3 (``probe_load.cu``) K1's loads apart from its
+math and an in-kernel gather, P4 (``probe_dtype.cu``) an elementwise op mix
+in float32 and packed bfloat16.  The variants of P1, P2 and P3's
+compute_resident are compile-time variants of K1's and K2's kernels
+(``csrc/composite_fwd.cuh``, ``composite_bwd.cuh``), whose comments say what
+each keeps and removes; the plain PyTorch versions here define every
+output.
 
 As everywhere in the port, a wrapper given CPU tensors returns its plain
 version, and given CUDA tensors launches its kernel (counted in
@@ -93,8 +96,8 @@ def quad_power_alpha(rows, valid, ox, oy, qx, qy):
 
 def probe_forward_plain(variant, table, gauss_id, starts, counts,
                         grid_x: int):
-    """Plain version of P1's ``variant`` (``csrc/probe_fwd.cu`` says what
-    each removes): K1's packed [T, C+2, TILE_PIX] layout, walked like
+    """Plain version of P1's ``variant`` (``csrc/composite_fwd.cuh`` says
+    what each removes): K1's packed [T, C+2, TILE_PIX] layout, walked like
     ``composite_cuda.composite_forward_plain``: tile batches, CHUNK
     instances at a time, the transmittance as a running product."""
     _variant(variant, FWD_VARIANTS)
@@ -210,8 +213,8 @@ def probe_forward(variant, table, gauss_id, starts, counts, grid_x: int):
 
 def probe_backward_plain(variant, table, gauss_id, starts, counts,
                          grid_x: int, packed, d_packed, Cg: int):
-    """Plain version of P2's ``variant`` (``csrc/probe_bwd.cu`` says what
-    each removes): K2's per-instance rows [I, 6+Cg], walked like
+    """Plain version of P2's ``variant`` (``csrc/composite_bwd.cuh`` says
+    what each removes): K2's per-instance rows [I, 6+Cg], walked like
     ``composite_cuda.composite_backward_plain``."""
     _variant(variant, BWD_VARIANTS)
     dev = table.device
@@ -467,14 +470,17 @@ def probe_gather(variant, src, ids=None):
 
 def probe_dtype_plain(x, n_iters: int):
     """The op mix of ``tools/bench_vpu_dtype.py::kernel`` (:31-38) in the
-    dtype of ``x`` (float32 or bfloat16), each operation rounded to it."""
+    dtype of ``x`` (float32 or bfloat16), each operation rounded to it; in
+    float32 the exponential is taken as K1 takes it, exp2(-p log2 e)."""
+    log2e = torch.tensor(comp.LOG2E, dtype=x.dtype, device=x.device)
     half = torch.tensor(0.5, dtype=x.dtype, device=x.device)
     quarter = torch.tensor(0.25, dtype=x.dtype, device=x.device)
     decay = torch.tensor(0.9999, dtype=x.dtype, device=x.device)
     acc = torch.zeros_like(x)
     for _ in range(n_iters):
         p = x * x * half + x * quarter
-        g = torch.exp(-p)
+        g = (torch.exp2(-p * log2e) if x.dtype == torch.float32
+             else torch.exp(-p))
         a = g * x + p * half
         acc = acc + a
         x = x * decay

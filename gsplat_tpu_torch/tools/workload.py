@@ -32,16 +32,19 @@ CHUNK_TPU = 128          # composite_pallas.CHUNK: make_workload's chunk
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet).
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12       # fp32 outside the tensor cores
-BF16_OPS_PER_S = 989e12      # bf16, the only published bf16 rate (tensor)
+# bf16 outside the tensor cores (NVIDIA's H100 architecture whitepaper, SXM5:
+# twice the fp32 rate, as packed pairs); the data sheet's 989e12 is the
+# tensor cores' rate, which elementwise math cannot reach.
+BF16_OPS_PER_S = 133.8e12
 
-# fp32 operations of K1 (csrc/composite_fwd.cu) per (pixel, instance) pair,
+# fp32 operations of K1 (csrc/composite_fwd.cuh) per (pixel, instance) pair,
 # exp2 counted as one: a tested pair takes dx, dy (2), power (9), the exp2
 # argument, exp2, opacity product and cap (4) and the two skip tests (2); a
 # pair that passes them takes test_T and its compare (3); a composited pair
 # also takes alpha*T and a multiply and an add per channel (1 + 2C).
 K1_TEST_OPS = 17
 K1_STEP_OPS = 3
-# fp32 operations of K2 (csrc/composite_bwd.cu) per (pixel, instance) pair: a
+# fp32 operations of K2 (csrc/composite_bwd.cuh) per (pixel, instance) pair: a
 # tested pair (every position up to the pixel's n_contrib) takes K1's 17 and
 # the n_contrib gate (1); a composited pair also takes g (2C), w (1), the
 # prefix (2), the suffix (1), d alpha (5), the cap test and dpow (2), the
@@ -65,9 +68,12 @@ def bound_ms(nbytes, nops, ops_per_s=FP32_OPS_PER_S):
 @dataclass
 class Workload:
     """K1's and K2's inputs: the [P, 6+C] table, the sorted instance list
-    with per-tile starts and counts, K1's packed output and a cotangent of
-    its shape; ``scene`` holds the asset's intermediate stages (model,
-    camera, preprocess output, binning) when there is one."""
+    with per-tile starts and counts, a packed [T, C+2, TILE_PIX] array for
+    K2 and a cotangent of its shape; ``packed_is_k1`` says whether
+    ``packed`` is K1's own output on these inputs (else K2 reads it as it
+    is, as the synthetic workload's random one); ``scene`` holds the asset's
+    intermediate stages (model, camera, preprocess output, binning) when
+    there is one."""
     table: torch.Tensor
     gauss_id: torch.Tensor
     starts: torch.Tensor
@@ -77,6 +83,7 @@ class Workload:
     d_packed: torch.Tensor
     Cg: int
     name: str
+    packed_is_k1: bool = False
     scene: dict = field(default_factory=dict)
     pairs: Optional[dict] = None
 
@@ -146,7 +153,7 @@ def asset_workload(device="cuda", pair_counts: bool = True) -> Workload:
     gen.manual_seed(2)
     d_packed = torch.randn(packed.shape, generator=gen, device=dev)
     w = Workload(table, gid, starts, counts, gx, packed, d_packed,
-                 Cg=feats.shape[1] - 1, name="asset",
+                 Cg=feats.shape[1] - 1, name="asset", packed_is_k1=True,
                  scene=dict(model=model, cam=cam, pre=pre, pre_args=pre_args,
                             bins=bins, feats=feats, cap=cap, grid_y=gy))
     if pair_counts:
@@ -332,7 +339,7 @@ def pair_stats(w: Workload) -> dict:
     composites."""
     C = w.C
     nc2 = w.packed[:, C + 1]
-    if w.name == "asset":             # w.packed is K1's output here
+    if w.packed_is_k1:
         k1 = w.pairs or k1_pair_counts(*w.k1_args, nc2)
         k2 = k1
     else:
@@ -461,7 +468,9 @@ def gather_bound(variant: str, I: int, R: int, unique_rows: int):
     return bound_ms(2 * I * R * 4, 0)
 
 
-DTYPE_OPS = 11       # mul, mul, mul, add, neg, exp, mul, mul, add, add, mul
+# mul, mul, mul, add, the exp argument (a negation, or in float32 the product
+# by -log2 e), exp, mul, mul, add, add, mul
+DTYPE_OPS = 11
 
 
 def dtype_bound(n: int, itemsize: int, n_programs: int, n_iters: int, bf16):

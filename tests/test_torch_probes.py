@@ -64,7 +64,7 @@ def _dense_workload():
     d_packed = torch.from_numpy(rng.standard_normal(
         tuple(packed.shape)).astype(np.float32))
     w = wl.Workload(table, gid, starts, counts, gx, packed, d_packed, Cg=6,
-                    name="asset")
+                    name="dense", packed_is_k1=True)
     w.pairs = wl.k1_pair_counts(*w.k1_args, packed[:, w.C + 1])
     return w
 

@@ -116,3 +116,54 @@ def test_checkpoints_restore_across_packages(tmp_path):
     for k, v in jback.capture()["arrays"].items():
         np.testing.assert_array_equal(np.asarray(v), cap[k], err_msg=k)
     assert jback.capture()["meta"] == back.capture()["meta"]
+
+
+def _png(path):
+    from PIL import Image
+    with Image.open(path) as im:
+        return np.asarray(im, np.int64)
+
+
+def test_make_scene_port_matches_jax_scene(tmp_path):
+    """``make_scene_port`` writes ``make_synthetic_scene.make_scene``'s files
+    (held at 8 gaussians, 1 camera, 16x12): images and segment labels
+    equal, 16-bit depth within 1 (the two oracles' float sums differ in
+    the last bit), transforms.json within float rounding, and the
+    reference's own points3d.ply byte for byte, which the port's reader
+    loads as the JAX reader does."""
+    import json
+
+    from gsplat_tpu.data.readers import fetch_ply as jfetch
+    from gsplat_tpu_torch.data.readers import fetch_ply as tfetch
+    from make_synthetic_scene import make_scene
+    from torch_helpers import make_scene_port
+
+    kw = dict(n_gauss=8, n_cams=1, width=16, height=12,
+              num_class=SCENE_CLASSES)
+    ref, port = str(tmp_path / "ref"), str(tmp_path / "port")
+    make_scene(ref, with_depth=True, **kw)
+    make_scene_port(port, **kw)
+    for sub, tol in (("images", 0), ("segment", 0), ("depth", 1)):
+        names = sorted(os.listdir(os.path.join(ref, sub)))
+        assert names == sorted(os.listdir(os.path.join(port, sub))) != []
+        for n in names:
+            a, b = (_png(os.path.join(d, sub, n)) for d in (ref, port))
+            assert a.shape == b.shape and np.abs(a - b).max() <= tol, (sub, n)
+    ja, jb = ({}, {})
+    for d, into in ((ref, ja), (port, jb)):
+        with open(os.path.join(d, "transforms.json")) as f:
+            into.update(json.load(f))
+    assert [f["file_path"] for f in ja["frames"]] == [
+        f["file_path"] for f in jb["frames"]]
+    np.testing.assert_allclose(
+        [f["transform_matrix"] for f in jb["frames"]],
+        [f["transform_matrix"] for f in ja["frames"]], rtol=0, atol=1e-12)
+    for k in ("fl_x", "fl_y", "w", "h", "cx", "cy"):
+        np.testing.assert_allclose(jb[k], ja[k], rtol=1e-12, err_msg=k)
+    ply = "points3d.ply"
+    with open(os.path.join(ref, ply), "rb") as fa, \
+            open(os.path.join(port, ply), "rb") as fb:
+        assert fa.read() == fb.read()
+    pa, pb = jfetch(os.path.join(ref, ply)), tfetch(os.path.join(ref, ply))
+    for a, b in zip(pa, pb):
+        np.testing.assert_array_equal(np.asarray(b), np.asarray(a))
