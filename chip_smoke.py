@@ -48,13 +48,16 @@ Phases (any failure exits non-zero; nothing is caught):
    the step with ``cull="exact"`` and without alternated from one state
    (ms/step, device busy, launches per step), one ``densify_and_prune``
    whose clones and splits fire, and one more step;
-9. (c) ``train.trainer.Trainer`` at 1080p with exact cull: the perturbed
+9. (c) ``train.trainer.Trainer`` at 1080p with exact cull and the JAX
+   Trainer's numerics (its defaults: bf16 gradient rows, packed bf16
+   features, the quad power): the perturbed
    asset in 524,288 slots on four cameras near bench.py's, 40 iterations
-   with the counters zeroed just before — K3x, K3, K1, K2 and K4 once per
-   step, densification fires, an overflow only with a regrow after it, the
+   with the counters zeroed just before — K3x, K3, K1 and K2 in their
+   packed quad form, and K4 once per step, densification fires, an overflow only with a regrow after it, the
    loss falls before the first densification, the PLY, ``eval_log.jsonl``
    and a checkpoint that restores to equal tensors; (d) the command line
-   ``scripts.train.main`` in process with ``--cull exact`` on a small
+   ``scripts.train.main`` in process with ``--cull exact`` (and the
+   same default numerics) on a small
    NeRFstudio scene written with the port — its files written and K3x
    launched;
 10. (e) the kernel probes of ``gsplat_tpu_torch.tools``: P1 and P2
@@ -62,10 +65,25 @@ Phases (any failure exits non-zero; nothing is caught):
    against its plain version on every 17th tile (and P4 on a seeded
    block), then the six entry modules ``bench_*.main`` with the launch
    counts zeroed just before — each of P1 to P4 launched — which time
-   every variant and print its share of the base variant and its bound.
+   every variant and print its share of the base variant and its bound;
+11. (f) the JAX trainer's default numerics: K1 and K2 in each of their
+   forms (``mxu_power``; the packed bf16 features, with K2's bf16 pair
+   gradient rows; both) against their plain versions at the asset — K1
+   within the tolerances of 4., n_contrib equal, the packed forms' T_final
+   and n_contrib bit-equal to the f32 form's; K2 within 1e-3 of each
+   column's largest, packed words within one bf16 ulp beyond it — and
+   timed; then ten ``make_train_step`` steps in the JAX Trainer's
+   configuration with the counters zeroed just before (K3, K1 and K2 in
+   the packed quad form, K4, once per step; finite state, falling loss),
+   that step and the f32 one alternated from one state (f32, default,
+   default, f32: ms/step, device busy, idle share), one counted step in
+   each single form, and bench.py's serving configuration
+   (``render_only=True, feat_precision="bf16"``) at 1080p: its frame
+   median and device busy time.
 
 The last three lines are the kernel table as one JSON object (K1 to K4,
-K3x and P1 to P4, the P rows with every variant), the card line, and
+K3x, P1 to P4 with every variant, and K1's and K2's forms), the card line,
+and
 ``{"ok": true, "device": {...}}``.  Without a usable card the
 script exits 2 and prints no result.
 """
@@ -433,46 +451,46 @@ def phase_cull_render(torch, card, model, cam, cap):
           f"{json.dumps(gerr)}; phase {time.perf_counter() - t0:.1f} s")
 
 
-def alternate_cull_steps(torch, np, card, steps, state, batch, lrs):
-    """Train steps with ``cull="none"`` and ``cull="exact"`` from the same
-    state, alternated none, exact, exact, none: ms/step (CUDA events per
-    step), device busy ms/step (profiler), launches per step."""
+def alternate_steps(torch, np, card, steps, order, state, batch, lrs):
+    """Train steps of each of ``steps`` from the same state, in ``order``
+    (each name twice, as a, b, b, a): ms/step (CUDA events per step),
+    device busy ms/step (profiler) and the launches of one step, printed
+    and returned per name."""
     from gsplat_tpu_torch import _kernels
     t0 = time.perf_counter()
-    times = {"none": [], "exact": []}
-    for cull in ("none", "exact", "exact", "none"):
-        steps[cull](*state, batch, lrs)          # warm the allocator
+    times = {name: [] for name in steps}
+    for name in order:
+        steps[name](*state, batch, lrs)          # warm the allocator
         for _ in range(4):
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
-            out = steps[cull](*state, batch, lrs)
+            out = steps[name](*state, batch, lrs)
             b.record()
             torch.cuda.synchronize()
-            check(not bool(out[3]["overflow"]), f"cull {cull}: overflow")
-            times[cull].append(a.elapsed_time(b))
+            check(not bool(out[3]["overflow"]), f"step {name}: overflow")
+            times[name].append(a.elapsed_time(b))
     res = {}
-    for cull in ("none", "exact"):
+    for name in steps:
         torch.cuda.synchronize()
         _kernels.reset_launch_counts()
-        m = steps[cull](*state, batch, lrs)[3]
+        m = steps[name](*state, batch, lrs)[3]
         torch.cuda.synchronize()
         launches = dict(_kernels.launch_counts)
-        med = float(np.median(times[cull]))
-        busy = profile_window(torch, lambda: steps[cull](*state, batch, lrs),
-                              5, f"step ({cull})", med, card, top=6)
-        res[cull] = med
-        print(f"train step cull={cull} [{card}]: median {med:.3f} ms/step "
-              f"over {len(times[cull])} steps (p10 "
-              f"{np.percentile(times[cull], 10):.3f}, p90 "
-              f"{np.percentile(times[cull], 90):.3f}), device busy "
+        med = float(np.median(times[name]))
+        busy = profile_window(torch, lambda: steps[name](*state, batch, lrs),
+                              5, f"step ({name})", med, card, top=6)
+        res[name] = dict(ms=med, busy=busy, launches=launches)
+        print(f"train step {name} [{card}]: median {med:.3f} ms/step "
+              f"over {len(times[name])} steps (p10 "
+              f"{np.percentile(times[name], 10):.3f}, p90 "
+              f"{np.percentile(times[name], 90):.3f}), device busy "
               f"{'not measured' if busy is None else f'{busy:.3f}'} "
               f"ms/step, launches per step {json.dumps(launches)}, "
               f"num_rendered {int(m['num_rendered'])}, num_padded "
               f"{int(m['num_padded'])}")
-    check(launches["expand_extras"] == 1 and launches["expand"] == 1,
-          "cull exact step: K3x and K3 not launched once each")
-    print(f"cull steps phase: {time.perf_counter() - t0:.1f} s")
+    print(f"alternated steps ({', '.join(steps)}): "
+          f"{time.perf_counter() - t0:.1f} s")
     return res
 
 
@@ -512,6 +530,34 @@ def perturbed(torch, params, P, gen):
         for k, v in params._asdict().items()})
 
 
+def train_inputs(torch, cam, model, cap):
+    """What the training phases start from: the asset in a model of
+    TRAIN_CAPACITY slots, the camera's batch with targets rendered from
+    the unperturbed asset, the state with parameters perturbed by noise
+    from a generator seeded 7 (returned too), the optimization params
+    with TRAIN_LAMBDA_DEPTH and the learning-rate schedule."""
+    from gsplat_tpu_torch import renderer
+    from gsplat_tpu_torch.config import OptimizationParams
+    from gsplat_tpu_torch.train import schedules, trainer
+    dev = model.device
+    tm = train_model(torch, model)
+    target = renderer.render(cam, tm, max_instances=cap, device=dev)
+    check(not bool(target["overflow"]), "train: target render overflowed")
+    batch = trainer.camera_batch(
+        cam, gt_depth=target["depth_raw"][None],
+        gt_seg=torch.argmax(target["segment"], dim=0), device=dev)
+    batch["gt_image"] = target["render"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    state = (perturbed(torch, tm.params, model.capacity, gen), tm.opt_state,
+             tm.aux)
+    opt = OptimizationParams()
+    opt.lambda_depth = TRAIN_LAMBDA_DEPTH
+    return dict(batch=batch, state=state, gen=gen, opt=opt,
+                lr_fn=schedules.make_lr_fn(opt, 1.0),
+                untouched=int((target["depth_raw"] <= 0).sum()))
+
+
 def phase_train(torch, np, card, cam, model, cap):
     """The training path through ``make_train_step`` at full width: the
     asset in a model of TRAIN_CAPACITY slots, targets rendered from the
@@ -520,35 +566,21 @@ def phase_train(torch, np, card, cam, model, cap):
     ``densify_and_prune``, one more step.  Returns the launch counts of the
     steps, the step count and the densification threshold and extent that
     fired."""
-    from gsplat_tpu_torch import _kernels, renderer
-    from gsplat_tpu_torch.config import OptimizationParams
+    from gsplat_tpu_torch import _kernels
     from gsplat_tpu_torch.models import adam, densify
     from gsplat_tpu_torch.ops.rasterize import RasterizeConfig
-    from gsplat_tpu_torch.train import schedules, trainer
+    from gsplat_tpu_torch.train import trainer
 
     dev = model.device
     P = model.capacity
-    tm = train_model(torch, model)
-    target = renderer.render(cam, tm, max_instances=cap, device=dev)
-    check(not bool(target["overflow"]), "train: target render overflowed")
-    batch = trainer.camera_batch(
-        cam, gt_depth=target["depth_raw"][None],
-        gt_seg=torch.argmax(target["segment"], dim=0), device=dev)
-    batch["gt_image"] = target["render"]
-    untouched = int((target["depth_raw"] <= 0).sum())
-
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(7)
-    params = perturbed(torch, tm.params, P, gen)
-    opt_state, aux = tm.opt_state, tm.aux
-
-    opt = OptimizationParams()
-    opt.lambda_depth = TRAIN_LAMBDA_DEPTH
+    ti = train_inputs(torch, cam, model, cap)
+    batch, gen, opt, lr_fn = ti["batch"], ti["gen"], ti["opt"], ti["lr_fn"]
+    untouched = ti["untouched"]
+    params, opt_state, aux = ti["state"]
     cfg = RasterizeConfig(width=W, height=H, sh_degree=3,
                           num_class=NUM_CLASS, max_instances=cap)
     step = trainer.make_train_step(cfg, opt, 3, "L1_loss", True,
                                    torch.zeros(3, device=dev), device=dev)
-    lr_fn = schedules.make_lr_fn(opt, 1.0)
 
     torch.cuda.synchronize()
     _kernels.reset_launch_counts()
@@ -642,8 +674,13 @@ def phase_train(torch, np, card, cam, model, cap):
     steps = {"none": step, "exact": trainer.make_train_step(
         cfg_exact, opt, 3, "L1_loss", True, torch.zeros(3, device=dev),
         device=dev)}
-    alternate_cull_steps(torch, np, card, steps, (params, opt_state, aux),
-                         batch, lr_fn(TRAIN_STEPS))
+    res = alternate_steps(torch, np, card, steps,
+                          ("none", "exact", "exact", "none"),
+                          (params, opt_state, aux), batch, lr_fn(TRAIN_STEPS))
+    launches_exact = res["exact"]["launches"]
+    check(launches_exact["expand_extras"] == 1
+          and launches_exact["expand"] == 1,
+          "cull exact step: K3x and K3 not launched once each")
 
     # one densification with a threshold that fires: the 90th percentile
     # of the accumulated gradient norms, and the clone/split boundary at
@@ -681,8 +718,10 @@ def phase_train(torch, np, card, cam, model, cap):
 
 
 TRAINER_ITERS = 40
-CULL_KERNELS = ("expand_extras", "expand", "composite_forward",
-                "composite_backward", "segment_sum")
+# the Trainer and the command line run the JAX Trainer's numerics: K1 and
+# K2 in their packed quad form
+CULL_KERNELS = ("expand_extras", "expand", "composite_forward_packed_quad",
+                "composite_backward_packed_quad", "segment_sum")
 
 
 class MemoryScene:
@@ -1151,6 +1190,296 @@ def phase_probes(torch, card, w):
     ]
 
 
+# (f) the JAX trainer's default numerics: the forms of K1 and K2.  Each
+# form's kernels meet their plain versions at the asset; the main path runs
+# ten make_train_step steps in the JAX Trainer's configuration, one step of
+# each form alone, and bench.py's serving configuration.
+FORMS = ("quad", "packed", "packed_quad")
+# the JAX Trainer's numerics (gsplat_tpu/train/trainer.py:252-254, 384)
+DEFAULTS = dict(grad_precision="bf16", feat_precision="bf16", mxu_power=True)
+# the single forms' steps
+FORM_CONFIGS = {"quad": dict(mxu_power=True),
+                "packed": dict(grad_precision="bf16", feat_precision="bf16")}
+
+
+def form_of(comp, name):
+    """The form ``name`` at C = 7: packed forms with the ones channel."""
+    return comp.Form(mxu_power="quad" in name, feat_packed="packed" in name,
+                     with_ones="packed" in name)
+
+
+def form_table(torch, seg, table, Cg, form):
+    """The asset's [P, 6+C] table in ``form``'s layout: packed, its Cg
+    features as bf16 pairs after the geometry (the ones channel is made in
+    the kernel)."""
+    if not form.feat_packed:
+        return table
+    return torch.cat([table[:, :6], seg.pack_bf16_pairs(table[:, 6:6 + Cg])],
+                     dim=1).contiguous()
+
+
+def compare_form_rows(torch, seg, got, want, Cg, packed):
+    """K2's rule on a form's rows: each column within 1e-3 of its largest
+    |value|; packed feature words compared after unpacking, with one bf16
+    ulp of the value beyond that (the RNE of two f32 sums taken in another
+    order can differ by one step).  Returns (max |diff|, the worst
+    column's diff over its scale, values outside)."""
+    if packed:
+        got = torch.cat([got[:, :6], seg.unpack_bf16_pairs(got[:, 6:], Cg)],
+                        dim=1)
+        want = torch.cat([want[:, :6], seg.unpack_bf16_pairs(want[:, 6:],
+                                                               Cg)], dim=1)
+    d = (got - want).abs()
+    scale = want.abs().amax(dim=0)
+    tol = 1e-3 * scale[None].expand_as(d)
+    if packed:
+        mag = torch.maximum(got.abs(), want.abs())[:, 6:]
+        ulp = torch.exp2(torch.floor(torch.log2(mag.clamp_min(1e-30))) - 7)
+        tol = torch.cat([tol[:, :6], tol[:, 6:] + ulp], dim=1)
+    bad = int((d > tol).sum())
+    worst = float((d.amax(dim=0) / scale.clamp_min(1e-30)).max())
+    return float(d.max()), worst, bad
+
+
+def phase_form_kernels(torch, card, w):
+    """Each form of K1 and K2 against its plain version at the asset (K1's
+    inputs in the form's table layout, K2 on that form's K1 output and the
+    asset's seeded cotangent); their times, plain times and bounds."""
+    from gsplat_tpu_torch.ops import composite_cuda as comp
+    from gsplat_tpu_torch.ops import segment_reduce as seg
+    from gsplat_tpu_torch.tools import workload as wl
+    t0 = time.perf_counter()
+    C, Cg = w.C, w.Cg
+    gid, starts, counts, gx = w.gauss_id, w.starts, w.counts, w.grid_x
+    T = starts.shape[0]
+    rows = {}
+    for name in FORMS:
+        form = form_of(comp, name)
+        table = form_table(torch, seg, w.table, Cg, form)
+        k1 = (table, gid, starts, counts, gx, form, Cg)
+        out_k = comp.composite_forward(*k1)
+        plain_ms, out_p = single_ms(torch, lambda: comp.composite_forward_plain(
+            *k1))
+        err1, over, nc_diff = compare_k1(comp, out_k, out_p, C)
+        check(sum(over.values()) == 0 and nc_diff == 0,
+              f"K1 {name}: kernel disagrees with its plain version "
+              f"({json.dumps(over)}, n_contrib at {nc_diff} pixels)")
+        check(bool(torch.isfinite(out_k).all()), f"K1 {name}: non-finite")
+        if not form.mxu_power:
+            # the features do not reach T_final or n_contrib: the f32 form's
+            check(bits_equal(torch, out_k[:, C:], w.packed[:, C:]),
+                  f"K1 {name}: T_final or n_contrib differs from the f32 form")
+        ms1 = event_ms(torch, lambda: comp.composite_forward(*k1), 20)
+        pairs = (wl.k1_pair_counts(w.table, gid, starts, counts, gx,
+                                   out_k[:, C + 1], quad=True)
+                 if form.mxu_power else w.pairs)
+        test_ops = wl.K1_TEST_OPS - int(form.mxu_power)   # P1 quad_power's
+        ops1 = wl.k1_ops(pairs, C, test_ops=test_ops)
+        if form.feat_packed:
+            ops1 += wl.UNPACK_OPS * Cg * wl.staged_instances(
+                w, pairs["limits"])[1]
+        bytes1 = (table.numel() * 4 + int(counts.sum()) * 4 + 2 * 4 * T
+                  + out_k.numel() * 4)
+        bound1, by1 = wl.bound_ms(bytes1, ops1)
+        rows[f"K1 {name}"] = {
+            "max_abs_err": err1, "ms": ms1, "plain_ms": plain_ms,
+            "bound_ms": bound1, "bound_by": by1, "library_ms": None}
+
+        k2 = (table, gid, starts, counts, gx, out_k, w.d_packed, Cg, form)
+        d_k = comp.composite_backward(*k2)
+        torch.cuda.synchronize()
+        plain2_ms, d_p = single_ms(torch, lambda: comp.composite_backward_plain(
+            *k2))
+        check(bool(torch.isfinite(d_k[:, :6]).all()),
+              f"K2 {name}: non-finite gradient row")
+        check(float(d_k[gid >= table.shape[0]].abs().max()) == 0.0,
+              f"K2 {name}: pad slots carry gradient")
+        err2, worst, bad = compare_form_rows(torch, seg, d_k, d_p, Cg,
+                                             form.feat_packed)
+        check(bad == 0, f"K2 {name}: {bad} values outside tolerance (worst "
+              f"column {worst:.3g} of its largest)")
+        check(torch.equal(comp.composite_backward(*k2), d_k),
+              f"K2 {name}: two launches gave different bits")
+        ms2 = event_ms(torch, lambda: comp.composite_backward(*k2), 10)
+        nc = out_k[:, C + 1]
+        limit = torch.minimum(nc.amax(dim=1).long(), counts.long())
+        staged, n_real = wl.staged_instances(w, limit)
+        ops2 = ((wl.K2_TEST_OPS - int(form.mxu_power)) * int(nc.sum())
+                + wl.k2_pair_ops(C, Cg) * pairs["composited"])
+        if form.feat_packed:
+            ops2 += (wl.UNPACK_OPS * Cg * n_real
+                     + wl.PACK_OPS * ((Cg + 1) // 2) * staged)
+        bytes2 = (table.numel() * 4 + int(counts.sum()) * 4 + 2 * 4 * T
+                  + 2 * out_k.numel() * 4 + d_k.numel() * 4)
+        bound2, by2 = wl.bound_ms(bytes2, ops2)
+        rows[f"K2 {name}"] = {
+            "max_abs_err": err2, "ms": ms2, "plain_ms": plain2_ms,
+            "bound_ms": bound2, "bound_by": by2, "library_ms": None}
+        print(f"forms (f) [{card}] {name}: K1 vs plain max |diff| {err1:.3g}"
+              f", n_contrib equal; {ms1:.4f} ms (plain {plain_ms:.1f} ms), "
+              f"bound {bound1:.4f} ms ({bytes1} bytes, {ops1} ops; pairs "
+              f"{pairs['tested']} tested, {pairs['composited']} composited)"
+              f"; K2 vs plain max |diff| {err2:.3g} (worst column "
+              f"{worst:.2e} of its largest), {ms2:.4f} ms (plain "
+              f"{plain2_ms:.1f} ms), bound {bound2:.4f} ms ({bytes2} bytes, "
+              f"{ops2} ops)")
+    print(f"forms (f): kernels phase {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+def phase_form_paths(torch, np, card, w):
+    """The main path in the forms: ten ``make_train_step`` steps in the
+    JAX Trainer's configuration (finite state, falling loss), steps in it
+    and in f32 alternated from one state (f32, default, default, f32) with
+    ms/step, device busy and idle share; one step in each single form; and
+    bench.py's serving configuration (``render_only=True,
+    feat_precision="bf16"``) at 1080p.  Returns the launch counts: the ten
+    default steps', each single-form step's, and the served frame's."""
+    from gsplat_tpu_torch import _kernels, renderer
+    from gsplat_tpu_torch.core import transforms as T
+    from gsplat_tpu_torch.ops.rasterize import RasterizeConfig, rasterize
+    from gsplat_tpu_torch.train import trainer
+    t0 = time.perf_counter()
+    sc = w.scene
+    model, cam, cap = sc["model"], sc["cam"], sc["cap"]
+    dev = model.device
+    ti = train_inputs(torch, cam, model, cap)
+    batch, state, opt, lr_fn = (ti[k] for k in ("batch", "state", "opt",
+                                                 "lr_fn"))
+
+    def make_step(kw):
+        cfg = RasterizeConfig(width=W, height=H, sh_degree=3,
+                              num_class=NUM_CLASS, max_instances=cap, **kw)
+        return trainer.make_train_step(cfg, opt, 3, "L1_loss", True,
+                                       torch.zeros(3, device=dev), device=dev)
+
+    steps = {"f32": make_step({}), "default": make_step(DEFAULTS)}
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    s, history = state, []
+    for it in range(1, TRAIN_STEPS + 1):
+        *s, m = steps["default"](*s, batch, lr_fn(it))
+        history.append({k: float(v) for k, v in m.items()})
+    torch.cuda.synchronize()
+    launches = {"packed_quad": dict(_kernels.launch_counts)}
+    check(all(launches["packed_quad"][k] == TRAIN_STEPS for k in (
+        "expand", "composite_forward_packed_quad",
+        "composite_backward_packed_quad", "segment_sum"))
+          and launches["packed_quad"]["composite_forward"] == 0
+          and launches["packed_quad"]["composite_backward"] == 0,
+          f"forms (f): the default steps did not launch K3, K1 and K2 in "
+          f"the packed quad form and K4 once each ({launches})")
+    check(all(math.isfinite(h["loss"]) and not h["overflow"]
+              for h in history), "forms (f): a default step failed")
+    check(history[-1]["loss"] < history[0]["loss"]
+          and history[-1]["l1"] < history[0]["l1"],
+          f"forms (f): loss did not fall ({history[0]['loss']} -> "
+          f"{history[-1]['loss']})")
+    for name, tree in (("params", s[0]), ("mu", s[1].mu), ("nu", s[1].nu),
+                       ("aux", s[2][1:])):
+        check(all(bool(torch.isfinite(x).all()) for x in tree),
+              f"forms (f): non-finite {name} after the default steps")
+    print(f"forms (f): {TRAIN_STEPS} default steps, loss "
+          f"{history[0]['loss']:.6f} -> {history[-1]['loss']:.6f}, l1 "
+          f"{history[0]['l1']:.6f} -> {history[-1]['l1']:.6f}, launches "
+          f"{json.dumps(launches['packed_quad'])}")
+
+    # f32 and default alternated from one state
+    lrs = lr_fn(TRAIN_STEPS)
+    alternate_steps(torch, np, card, steps, ("f32", "default", "default",
+                                             "f32"), state, batch, lrs)
+
+    # one step in each single form, counted
+    for name in ("quad", "packed"):
+        step = make_step(FORM_CONFIGS[name])
+        torch.cuda.synchronize()
+        _kernels.reset_launch_counts()
+        m = step(*state, batch, lrs)[3]
+        torch.cuda.synchronize()
+        launches[name] = dict(_kernels.launch_counts)
+        check(launches[name][f"composite_forward_{name}"] == 1
+              and launches[name][f"composite_backward_{name}"] == 1
+              and math.isfinite(float(m["loss"])),
+              f"forms (f): the {name} step ({launches[name]})")
+
+    # bench.py's serving configuration at 1080p
+    p = model.params
+    cfg_r = RasterizeConfig(width=W, height=H, sh_degree=3, max_instances=cap,
+                            render_only=True, feat_precision="bf16")
+    args = (p.xyz, T.scaling_activation(p.scaling), p.rotation,
+            T.opacity_activation(p.opacity[:, 0]), model.get_features)
+    cam_kw = dict(viewmatrix=cam.world_view_transform,
+                  projmatrix=cam.full_proj_transform,
+                  campos=cam.camera_center, tan_fovx=cam.tan_fovx,
+                  tan_fovy=cam.tan_fovy, bg=torch.zeros(3, device=dev),
+                  device=dev)
+
+    def serve():
+        return rasterize(cfg_r, *args, **cam_kw)
+
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    out = serve()
+    torch.cuda.synchronize()
+    launches["serving"] = dict(_kernels.launch_counts)
+    check(launches["serving"]["composite_forward_packed"] == 1
+          and launches["serving"]["expand"] == 1,
+          f"forms (f): serving did not launch K3 and packed K1 once "
+          f"({launches['serving']})")
+    check(not bool(out["overflow"]) and out["render"].shape == (3, H, W)
+          and bool(torch.isfinite(out["render"]).all()),
+          "forms (f): serving output")
+    ref = renderer.render(cam, model, device=dev)["render"]
+    rgb_err = float((out["render"] - ref).abs().max())
+    # features rounded to bf16 (2^-9 relative) in an image of values <= ~1
+    check(rgb_err <= 6e-3, f"forms (f): served frame differs from the f32 "
+          f"render by {rgb_err}")
+    for _ in range(3):
+        serve()
+    torch.cuda.synchronize()
+    ft = []
+    for _ in range(30):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        serve()
+        b.record()
+        torch.cuda.synchronize()
+        ft.append(a.elapsed_time(b))
+    med = float(np.median(ft))
+    busy = profile_window(torch, serve, 10, "frame (serving)", med, card)
+    print(f"forms (f) serving render_only feat bf16 {W}x{H} [{card}]: median "
+          f"{med:.3f} ms/frame (p10 {np.percentile(ft, 10):.3f}, p90 "
+          f"{np.percentile(ft, 90):.3f}), device busy "
+          f"{'not measured' if busy is None else f'{busy:.3f}'} ms/frame; "
+          f"max |diff| against the f32 render {rgb_err:.3g}; launches "
+          f"{json.dumps(launches['serving'])}; phase "
+          f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def form_rows(rows, launches):
+    """The kernel table's rows of the forms: launches from the main path
+    (the default steps for the packed quad forms, each single form's step,
+    the served frame for K1's packed form)."""
+    out = []
+    for name in FORMS:
+        for k, kind, src, line in (
+                ("K1", "forward", "composite_fwd_forms.cu", 247),
+                ("K2", "backward", "composite_bwd_forms.cu", 356)):
+            run = ("serving" if (k, name) == ("K1", "packed") else name)
+            opts = {"quad": "mxu_power", "packed": "feat_precision=bf16",
+                    "packed_quad": "feat_precision=bf16, mxu_power"}[name]
+            out.append({
+                "name": f"{k} composite_{kind}_{name}", "route": "cuda",
+                "source": f"gsplat_tpu_torch/csrc/{src}",
+                "replaces": f"gsplat_tpu/ops/composite_pallas.py:{line} "
+                            f"({opts})",
+                "launches": launches[run][f"composite_{kind}_{name}"],
+                **rows[f"{k} {name}"]})
+    return out
+
+
 def main():
     import numpy as np
     import torch
@@ -1416,6 +1745,10 @@ def main():
     # ---- 10. (e) the kernel probes of gsplat_tpu_torch/tools ---------------
     probe_rows = phase_probes(torch, card, w)
 
+    # ---- 11. (f) the JAX trainer's default numerics: K1's and K2's forms ----
+    form_kernel_rows = phase_form_kernels(torch, card, w)
+    form_launches = phase_form_paths(torch, np, card, w)
+
     # bounds: each input read once, each output written once
     k3_bytes = 3 * 4 * S + 2 * 4 * cap
     k3_ops = cap * (4 * math.ceil(math.log2(S + 1)) + 12)
@@ -1455,6 +1788,7 @@ def main():
          "replaces": "gsplat_tpu/ops/binning.py:84 (n_extra > 0)",
          "launches": trainer_launches["expand_extras"], **k3x},
         *probe_rows,
+        *form_rows(form_kernel_rows, form_launches),
     ]
     print(f"launches: K3 and K1 from the one render, K2 and K4 from the "
           f"{train_steps} training steps (K3 and K1 also ran "

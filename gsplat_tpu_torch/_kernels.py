@@ -31,8 +31,8 @@ CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 LIB_PATH = os.path.join(BUILD_DIR, "libgsplat_kernels.so")
 SOURCES = ("common.cu", "expand.cu", "composite_fwd.cu", "composite_bwd.cu",
-           "segsum.cu", "probe_fwd.cu", "probe_bwd.cu", "probe_load.cu",
-           "probe_dtype.cu")
+           "composite_fwd_forms.cu", "composite_bwd_forms.cu", "segsum.cu",
+           "probe_fwd.cu", "probe_bwd.cu", "probe_load.cu", "probe_dtype.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",
@@ -46,8 +46,12 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
-launch_counts = {"expand": 0, "expand_extras": 0, "composite_forward": 0,
-                 "composite_backward": 0, "segment_sum": 0,
+# K1's and K2's forms (composite_cuda.Form.name) count apart
+COMPOSITE_FORMS = ("", "_quad", "_packed", "_packed_quad")
+launch_counts = {"expand": 0, "expand_extras": 0,
+                 **{f"composite_{k}{f}": 0 for k in ("forward", "backward")
+                    for f in COMPOSITE_FORMS},
+                 "segment_sum": 0,
                  # the kernel probes of gsplat_tpu_torch/tools (P1 to P4)
                  "probe_forward": 0, "probe_backward": 0, "probe_load": 0,
                  "probe_dtype": 0}
@@ -70,6 +74,13 @@ SIGNATURES = {
     # tile_y, packed, d_packed, d_inst, stream
     "gsplat_composite_backward": (_VP, _I, _I, _I, _VP, _VP, _VP, _I, _I, _I,
                                   _I, _VP, _VP, _VP, _VP),
+    # form (1 quad, 2 packed, 3 both), table, P, C, Cg, gauss_id, starts,
+    # counts, num_tiles, grid_x, tile_x, tile_y, out, stream
+    "gsplat_composite_forward_form": (_I, _VP, _I, _I, _I, _VP, _VP, _VP, _I,
+                                      _I, _I, _I, _VP, _VP),
+    # form, then gsplat_composite_backward's arguments
+    "gsplat_composite_backward_form": (_I, _VP, _I, _I, _I, _VP, _VP, _VP,
+                                       _I, _I, _I, _I, _VP, _VP, _VP, _VP),
     # vals, sids, perm (or null), I, R, num_segments, out, stream
     "gsplat_segment_sum": (_VP, _VP, _VP, _I, _I, _I, _VP, _VP),
     # variant, then gsplat_composite_forward's arguments

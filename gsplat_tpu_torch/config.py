@@ -4,17 +4,9 @@ port of ``gsplat_tpu/config.py``).
 Behavioral spec: reference arguments/__init__.py:19-141 (ParamGroup, leading
 '_' = shorthand flag, ModelParams/PipelineParams/OptimizationParams defaults,
 get_combined_args cfg_args merge).  The same flags and defaults as the JAX
-package, with two stated differences:
-
-- ``ModelParams.data_device`` defaults to ``"cuda"`` (the JAX package's
-  ``"tpu"``); ``"cpu"`` runs every kernel's plain version on the CPU.
-- ``PerformanceParams.grad_precision`` and ``feat_precision`` default to
-  ``"f32"`` (the JAX package's ``"bf16"``).  The JAX defaults, and the
-  ``mxu_power=True`` its ``Trainer`` hard-codes, act only on its Pallas
-  path; off the TPU ``backend="auto"`` resolves to its jnp path, where all
-  three are inert.  The port's kernels compute what that path computes;
-  the bf16 packing is ROADMAP Queue 1 item 2, which moves these defaults
-  back to ``"bf16"`` when it lands.  ``backend`` accepts only ``"auto"``.
+package, with one stated difference: ``ModelParams.data_device`` defaults
+to ``"cuda"`` (the JAX package's ``"tpu"``); ``"cpu"`` runs every kernel's
+plain version on the CPU.  ``backend`` accepts only ``"auto"``.
 """
 from __future__ import annotations
 
@@ -130,8 +122,8 @@ class PerformanceParams(ParamGroup):
         self.data_parallel = 1       # cameras per step (multi-GPU: not ported)
         self.tile_parallel = 1       # tile-row slices (multi-GPU: not ported)
         self.profile_dir = ""        # torch.profiler trace output dir
-        self.grad_precision = "f32"  # f32 | bf16 per-instance grad rows
-        self.feat_precision = "f32"  # f32 | bf16 attr-table feature cols
+        self.grad_precision = "bf16"  # bf16 | f32 per-instance grad rows
+        self.feat_precision = "bf16"  # bf16 | f32 attr-table feature cols
         self.cull = "none"           # none | exact ellipse-tile culling
         self.vs_prune = False        # ablation: restore the screen-radius
                                      # prune (the reference's is inert —

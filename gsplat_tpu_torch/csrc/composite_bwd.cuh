@@ -1,6 +1,7 @@
 // K2 — backward alpha composite, one CTA per tile: the kernel body, shared by
-// K2 itself (composite_bwd.cu, the variant kBwdBase) and by the probes that
-// change one piece of it (probe_bwd.cu, P2).
+// K2 itself (composite_bwd.cu, the variant kBwdBase in the f32 form;
+// composite_bwd_forms.cu, its other forms) and by the probes that change one
+// piece of it (probe_bwd.cu, P2).
 //
 // Replaces the Pallas kernel gsplat_tpu/ops/composite_pallas.py::
 // _backward_kernel (:356-563, launched by _composite_bwd :629) together with
@@ -61,6 +62,19 @@
 // (pixel, instance) pairs are skipped, so the warp vote removes most
 // shuffles.  C <= 8 keeps d_out in registers; larger C re-reads it from
 // global memory (correct, slow).
+//
+// The forms (template parameter F, composite_common.cuh's Form bits), K1's:
+//   kFormQuad    the power from K1's quad-form coefficients, computed once
+//                per staged batch with K1's expressions in K1's order (the
+//                same --fmad=false), and the power > 1e-4 skip, so the pairs
+//                K2 composites are those K1 composited under n_contrib.  dx
+//                and dy are still formed for the five moment products.
+//   kFormPacked  staging as K1's packed form (the table [P, 6 + ceil(Cg/2)]
+//                of bf16 pairs, the ones channel where C > Cg), and the Cg
+//                feature sums written as ceil(Cg/2) words of RNE bf16 pairs
+//                (composite_pallas.py:214-223, :533-542) by the integer
+//                rounding of _round_bf16_bits: rows [I, 6 + ceil(Cg/2)], the
+//                cotangent layout of gather_rows(packed_tail=).
 //
 // The probes' variants.  Each one changes one piece of the body above at
 // compile time, so kBwdBase is K2 and every variant follows K2 when K2
@@ -155,7 +169,8 @@ __device__ __forceinline__ float warp_sum8(const float (&v)[8], int lane) {
 
 // CT > 0: compile-time channel count, d_out in registers.
 // CT == 0: runtime channel count C, d_out re-read from global memory.
-template <int CT, int V>
+// F: the form (Form bits), 0 for f32.
+template <int CT, int V, int F = 0>
 __global__ void __launch_bounds__(kMaxThreads)
 composite_backward_kernel(const float* __restrict__ table, int P, int C,
                           int Cg, const int* __restrict__ gauss_id,
@@ -165,10 +180,15 @@ composite_backward_kernel(const float* __restrict__ table, int P, int C,
                           const float* __restrict__ packed,
                           const float* __restrict__ d_packed,
                           float* __restrict__ d_inst) {
+  constexpr bool kQuad = (F & kFormQuad) != 0;
+  constexpr bool kPacked = (F & kFormPacked) != 0;
+  constexpr float kPowerCut = kQuad ? kQuadPowerCut : 0.f;
   extern __shared__ float smem[];
   const int nc = CT > 0 ? CT : C;
   const int row = kGeo + nc;
   const int nout = kGeo + Cg;
+  // the words of a row written: packed, the Cg sums as ceil(Cg/2) pairs
+  const int nw = kPacked ? kGeo + (Cg + 1) / 2 : nout;
   const int npix = tile_x * tile_y;  // a multiple of 32 (checked by the host)
   const int nwarps = npix >> 5;
   float* s_rows = smem;                       // [kBwdBatch][row]
@@ -178,6 +198,8 @@ composite_backward_kernel(const float* __restrict__ table, int P, int C,
   int* s_gid = reinterpret_cast<int*>(s_part + nwarps * kBwdBatch * nout);
   unsigned* s_mask = reinterpret_cast<unsigned*>(s_gid + kBwdBatch);
   int* s_red = reinterpret_cast<int*>(s_mask + kBwdBatch);  // [kMaxWarps]
+  // [kBwdBatch][kCoef], kFormQuad only
+  float* s_coef = reinterpret_cast<float*>(s_red + kMaxWarps);
 
   const int t = blockIdx.x;
   const int tid = threadIdx.x;
@@ -190,6 +212,10 @@ composite_backward_kernel(const float* __restrict__ table, int P, int C,
   // the tile-local basis of moments_basis
   const float qx = static_cast<float>(tid % tile_x);
   const float qy = static_cast<float>(tid / tile_x);
+  // and of kFormQuad, as K1 forms it
+  const float qxx = qx * qx;
+  const float qyy = qy * qy;
+  const float qxy = qx * qy;
   const int start = starts[t];
   const int count = counts[t];
   const size_t tile_off = static_cast<size_t>(t) * (nc + 2) * npix;
@@ -242,11 +268,22 @@ composite_backward_kernel(const float* __restrict__ table, int P, int C,
       const int k = e / row;
       const int col = e - k * row;
       const int g = s_gid[k];
-      s_rows[e] = (g >= 0 && g < P)
-                      ? __ldg(table + static_cast<size_t>(g) * row + col)
-                      : 0.f;
+      if constexpr (kPacked) {
+        s_rows[e] = packed_value(table, P, g, Cg, col);
+      } else {
+        s_rows[e] = (g >= 0 && g < P)
+                        ? __ldg(table + static_cast<size_t>(g) * row + col)
+                        : 0.f;
+      }
     }
     __syncthreads();
+    if constexpr (kQuad) {
+      for (int k = tid; k < nb; k += npix) {
+        quad_coefficients(s_rows + k * row, static_cast<float>(ox),
+                          static_cast<float>(oy), s_coef + k * kCoef);
+      }
+      __syncthreads();
+    }
 
     const int kend = min(nb, wmax - b0);  // the same for the whole warp
     for (int k = 0; k < kend; ++k) {
@@ -261,10 +298,14 @@ composite_backward_kernel(const float* __restrict__ table, int P, int C,
         raw = r[5];
         pass = true;
       } else {
-        const float power =
-            -0.5f * (r[2] * dx * dx + r[4] * dy * dy) - r[3] * dx * dy;
+        float power;
+        if constexpr (kQuad) {
+          power = quad_power(s_coef + k * kCoef, qx, qy, qxx, qyy, qxy);
+        } else {
+          power = -0.5f * (r[2] * dx * dx + r[4] * dy * dy) - r[3] * dx * dy;
+        }
         raw = V == kExp ? r[5] * expf(power) : r[5] * exp2f(power * kLog2e);
-        pass = power <= 0.f;
+        pass = power <= kPowerCut;
       }
       const float alpha = fminf(kAlphaMax, raw);
       const bool contrib =
@@ -366,13 +407,19 @@ composite_backward_kernel(const float* __restrict__ table, int P, int C,
       s_sum[e] = s;
     }
     __syncthreads();
-    for (int e = tid; e < nb * nout; e += npix) {
-      const int k = e / nout;
-      const int j = e - k * nout;
+    for (int e = tid; e < nb * nw; e += npix) {
+      const int k = e / nw;
+      const int j = e - k * nw;
       const float* r = s_rows + k * row;
       const float* q = s_sum + k * nout;
       float o;
-      if (V == kMomentsBasis && j < kGeo) {
+      if (kPacked && j >= kGeo) {
+        // feature sums c, c+1 as one word of RNE bf16 pairs
+        const int c = kGeo + 2 * (j - kGeo);
+        const unsigned lo = c + 1 < nout ? round_bf16_bits(q[c + 1]) >> 16
+                                         : 0u;
+        o = __uint_as_float(round_bf16_bits(q[c]) | lo);
+      } else if (V == kMomentsBasis && j < kGeo) {
         // q = M0..M5 over (1, qx, qy, qx^2, qy^2, qx qy)
         const float xr = r[0] - static_cast<float>(ox);
         const float yr = r[1] - static_cast<float>(oy);
@@ -400,35 +447,37 @@ composite_backward_kernel(const float* __restrict__ table, int P, int C,
           default: o = q[j]; break;
         }
       }
-      d_inst[static_cast<size_t>(start + b0 + k) * nout + j] = o;
+      d_inst[static_cast<size_t>(start + b0 + k) * nw + j] = o;
     }
   }
 }
 
-size_t smem_bytes(int C, int Cg, int npix) {
+size_t smem_bytes(int C, int Cg, int npix, bool quad = false) {
   const size_t row = kGeo + C;
   const size_t nout = kGeo + Cg;
   const size_t nwarps = npix / 32;
   return (kBwdBatch * row + kBwdBatch * nout + nwarps * kBwdBatch * nout) *
              sizeof(float) +
-         2 * kBwdBatch * sizeof(int) + kMaxWarps * sizeof(int);
+         2 * kBwdBatch * sizeof(int) + kMaxWarps * sizeof(int) +
+         (quad ? kBwdBatch * kCoef * sizeof(float) : 0);
 }
 
-template <int CT, int V>
+template <int CT, int V, int F = 0>
 int launch_backward(const float* table, int P, int C, int Cg,
                     const int* gauss_id, const int* starts, const int* counts,
                     int num_tiles, int grid_x, int tile_x, int tile_y,
                     const float* packed, const float* d_packed, float* d_inst,
                     cudaStream_t stream) {
-  const size_t smem = smem_bytes(C, Cg, tile_x * tile_y);
+  const size_t smem =
+      smem_bytes(C, Cg, tile_x * tile_y, (F & kFormQuad) != 0);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        composite_backward_kernel<CT, V>,
+        composite_backward_kernel<CT, V, F>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  composite_backward_kernel<CT, V><<<num_tiles, tile_x * tile_y, smem,
-                                     stream>>>(
+  composite_backward_kernel<CT, V, F><<<num_tiles, tile_x * tile_y, smem,
+                                        stream>>>(
       table, P, C, Cg, gauss_id, starts, counts, grid_x, tile_x, tile_y,
       packed, d_packed, d_inst);
   return static_cast<int>(cudaGetLastError());

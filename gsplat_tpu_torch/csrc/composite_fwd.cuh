@@ -1,7 +1,8 @@
 // K1 — forward alpha composite, one CTA per tile: the kernel body, shared by
-// K1 itself (composite_fwd.cu, the variant kFwdBase) and by the probes that
-// change one piece of it (probe_fwd.cu, P1; probe_load.cu, P3's
-// compute_resident and the staging of its load_only forms).
+// K1 itself (composite_fwd.cu, the variant kFwdBase in the f32 form;
+// composite_fwd_forms.cu, its other forms) and by the probes that change one
+// piece of it (probe_fwd.cu, P1; probe_load.cu, P3's compute_resident and the
+// staging of its load_only forms).
 //
 // Replaces the Pallas kernel gsplat_tpu/ops/composite_pallas.py::
 // _forward_kernel (:247-353, launched by _pallas_forward :578-598), together
@@ -48,6 +49,23 @@
 // in global memory (each pixel owns its own output words, so there are no
 // races).
 //
+// The forms (template parameter F, composite_common.cuh's Form bits), the
+// Pallas kernel's compile-time mxu_power and fp:
+//   kFormQuad    the power as per-instance coefficients in tile-relative
+//                coordinates (formed once per staged batch) times the
+//                tile-local basis (1, qx, qy, qx^2, qy^2, qx qy), summed as
+//                six products, with the power > 1e-4 skip
+//                (composite_pallas.py:130-151, :172).  A plain product, not a
+//                tensor-core mma: the TPU kernel took it to its matrix unit;
+//                here it is six FMA-unit products against base's nine, and
+//                six more floats per staged instance.
+//   kFormPacked  the table is [P, 6 + ceil(Cg/2)] with the features as RNE
+//                bf16 pairs; staging unpacks each word into two floats (an
+//                and, a shift) and, with kFormOnes, appends the ones channel,
+//                so the staged row and everything after it are base's.  The
+//                table read shrinks from 6 + C to 6 + ceil(Cg/2) words per
+//                instance.
+//
 // The probes' variants.  Each one changes one piece of the body above at
 // compile time, so kFwdBase is K1 and every variant follows K1 when K1
 // changes.  Each writes K1's [T, C+2, TILE_PIX] layout; what each row holds
@@ -67,12 +85,8 @@
 //   alpha_only       power, alpha and the two skip tests only, and one add:
 //                    row 0 is the sum of the passing alphas, row C is 1, the
 //                    rest zero; no transmittance, no termination.
-//   quad_power       the TPU's mxu_power form (composite_pallas.py:130-151):
-//                    per-instance coefficients in tile-relative coordinates
-//                    (formed once per staged batch) times the per-pixel basis
-//                    (1, qx, qy, qx^2, qy^2, qx qy), summed as six products,
-//                    with the power > 1e-4 skip (:172).  A plain product,
-//                    not a tensor-core mma.
+//   quad_power       K1's kFormQuad form: P1 launches kFwdBase with
+//                    F = kFormQuad (the enum value is P1's index only).
 //   no_exp           stripped with exp2 replaced by 1 + power (costs the
 //                    special-function unit; compare with stripped).
 //   stripped         no termination test, no done state, no `last`: the
@@ -96,7 +110,6 @@
 namespace {
 
 constexpr int kFwdBatch = 256;     // instances staged per round
-constexpr int kCoef = 6;           // quad_power coefficients per instance
 constexpr float kTEps = 1e-4f;
 
 // The first ten in the order of probes.FWD_VARIANTS (P1's variant index).
@@ -138,17 +151,34 @@ __device__ __forceinline__ void stage_batch(const float* __restrict__ table,
   __syncthreads();
 }
 
-// CT > 0: compile-time channel count, accumulators in registers.
-// CT == 0: runtime channel count C, accumulated in global memory.
-template <int CT, int V>
-__global__ void __launch_bounds__(kMaxThreads)
-composite_forward_kernel(const float* __restrict__ table, int P, int C,
-                         const int* __restrict__ gauss_id,
-                         const int* __restrict__ starts,
-                         const int* __restrict__ counts, int grid_x,
-                         int tile_x, int tile_y, float* __restrict__ out) {
+// stage_batch from the packed table [P, 6 + ceil(cg/2)]: the staged rows of
+// kGeo + C floats are what stage_batch stages from the f32 table.
+__device__ __forceinline__ void stage_batch_packed(
+    const float* __restrict__ table, int P, int row, int cg,
+    const int* __restrict__ gauss_id, int start, int b0, int nb, int npix,
+    float* s_rows, int* s_gid) {
+  const int tid = threadIdx.x;
+  for (int k = tid; k < nb; k += npix) s_gid[k] = gauss_id[start + b0 + k];
+  __syncthreads();
+  for (int e = tid; e < nb * row; e += npix) {
+    const int k = e / row;
+    s_rows[e] = packed_value(table, P, s_gid[k], cg, e - k * row);
+  }
+  __syncthreads();
+}
+
+// The kernel body.  CT > 0: compile-time channel count, accumulators in
+// registers; CT == 0: runtime channel count C, accumulated in global memory.
+// F: the form (Form bits), 0 for f32.
+template <int CT, int V, int F>
+__device__ __forceinline__ void composite_forward_body(
+    const float* __restrict__ table, int P, int C,
+    const int* __restrict__ gauss_id, const int* __restrict__ starts,
+    const int* __restrict__ counts, int grid_x, int tile_x, int tile_y,
+    float* __restrict__ out) {
   // what each variant keeps
-  constexpr bool kQuad = V == kQuadPower;
+  constexpr bool kQuad = (F & kFormQuad) != 0;
+  constexpr bool kPacked = (F & kFormPacked) != 0;
   constexpr bool kStrip = V == kStripped || V == kNoExp;
   constexpr bool kTerminate = V != kAlphaOnly && !kStrip;
   constexpr bool kExit = kTerminate && V != kNoCond;
@@ -157,7 +187,7 @@ composite_forward_kernel(const float* __restrict__ table, int P, int C,
   constexpr bool kLast = V != kNoMinmax && V != kAlphaOnly && !kStrip;
   constexpr bool kSentinelBranch = V != kTrimBookkeeping;
   constexpr bool kStageEach = V != kComputeResident;
-  constexpr float kPowerCut = kQuad ? 1e-4f : 0.f;
+  constexpr float kPowerCut = kQuad ? kQuadPowerCut : 0.f;
 
   extern __shared__ float smem[];
   const int nc = CT > 0 ? CT : C;
@@ -207,25 +237,18 @@ composite_forward_kernel(const float* __restrict__ table, int P, int C,
     }
     const int nb = min(kFwdBatch, count - b0);
     if (kStageEach || b0 == 0) {
-      stage_batch(table, P, row, gauss_id, start, b0, nb, npix, s_rows,
-                  s_gid);
+      if constexpr (kPacked) {
+        stage_batch_packed(table, P, row, nc - ((F & kFormOnes) ? 1 : 0),
+                           gauss_id, start, b0, nb, npix, s_rows, s_gid);
+      } else {
+        stage_batch(table, P, row, gauss_id, start, b0, nb, npix, s_rows,
+                    s_gid);
+      }
     }
-    if (kQuad) {
-      // composite_pallas.py:131-140 with tile-relative means xr, yr
+    if constexpr (kQuad) {
       for (int k = tid; k < nb; k += npix) {
-        const float* r = s_rows + k * row;
-        const float xr = r[0] - static_cast<float>(ox);
-        const float yr = r[1] - static_cast<float>(oy);
-        const float A = r[2];
-        const float B = r[3];
-        const float Cc = r[4];
-        float* q = s_coef + k * kCoef;
-        q[0] = -0.5f * (A * xr * xr + Cc * yr * yr) - B * xr * yr;
-        q[1] = A * xr + B * yr;
-        q[2] = Cc * yr + B * xr;
-        q[3] = -0.5f * A;
-        q[4] = -0.5f * Cc;
-        q[5] = -B;
+        quad_coefficients(s_rows + k * row, static_cast<float>(ox),
+                          static_cast<float>(oy), s_coef + k * kCoef);
       }
       __syncthreads();
     }
@@ -240,9 +263,7 @@ composite_forward_kernel(const float* __restrict__ table, int P, int C,
       const float* r = s_rows + k * row;
       float power;
       if (kQuad) {
-        const float* q = s_coef + k * kCoef;
-        power = q[0] + q[1] * qx + q[2] * qy + q[3] * qxx + q[4] * qyy +
-                q[5] * qxy;
+        power = quad_power(s_coef + k * kCoef, qx, qy, qxx, qyy, qxy);
       } else {
         const float dx = r[0] - px;
         const float dy = r[1] - py;
@@ -310,23 +331,62 @@ composite_forward_kernel(const float* __restrict__ table, int P, int C,
   out_t[(nc + 1) * npix + tid] = static_cast<float>(last);
 }
 
-template <int CT, int V>
+#define GSPLAT_K1_PARAMS                                                     \
+  const float* __restrict__ table, int P, int C,                             \
+      const int* __restrict__ gauss_id, const int* __restrict__ starts,      \
+      const int* __restrict__ counts, int grid_x, int tile_x, int tile_y,    \
+      float* __restrict__ out
+#define GSPLAT_K1_ARGS \
+  table, P, C, gauss_id, starts, counts, grid_x, tile_x, tile_y, out
+
+// The f32 form (and the probes' variants of it).
+template <int CT, int V, int F = 0>
+__global__ void __launch_bounds__(kMaxThreads)
+composite_forward_kernel(GSPLAT_K1_PARAMS) {
+  composite_forward_body<CT, V, F>(GSPLAT_K1_ARGS);
+}
+
+// The other forms ask for two CTAs of 1024 threads per SM, so at most 32
+// registers a thread: left free, ptxas gave the packed quad form 42 at
+// C = 7, one CTA per SM, and it ran 19% slower than the quad form (an
+// H100, PERF.md).  A kernel of its own, because a second bound on the f32
+// form's kernel changes its code.
+template <int CT, int V, int F>
+__global__ void __launch_bounds__(kMaxThreads, 2)
+composite_forward_form_kernel(GSPLAT_K1_PARAMS) {
+  composite_forward_body<CT, V, F>(GSPLAT_K1_ARGS);
+}
+
+#undef GSPLAT_K1_PARAMS
+#undef GSPLAT_K1_ARGS
+
+// The kernel entry of form F (only the one is instantiated).
+template <int CT, int V, int F>
+auto forward_kernel() {
+  if constexpr (F == 0) {
+    return composite_forward_kernel<CT, V, F>;
+  } else {
+    return composite_forward_form_kernel<CT, V, F>;
+  }
+}
+
+template <int CT, int V, int F = 0>
 int launch_forward(const float* table, int P, int C, const int* gauss_id,
                    const int* starts, const int* counts, int num_tiles,
                    int grid_x, int tile_x, int tile_y, float* out,
                    cudaStream_t stream) {
   const size_t smem =
       static_cast<size_t>(kFwdBatch) * (kGeo + C) * sizeof(float) +
-      (V == kQuadPower ? kFwdBatch * kCoef * sizeof(float) : 0) +
+      ((F & kFormQuad) ? kFwdBatch * kCoef * sizeof(float) : 0) +
       kFwdBatch * sizeof(int);
+  const auto kernel = forward_kernel<CT, V, F>();
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        composite_forward_kernel<CT, V>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  composite_forward_kernel<CT, V><<<num_tiles, tile_x * tile_y, smem,
-                                    stream>>>(
+  kernel<<<num_tiles, tile_x * tile_y, smem, stream>>>(
       table, P, C, gauss_id, starts, counts, grid_x, tile_x, tile_y, out);
   return static_cast<int>(cudaGetLastError());
 }

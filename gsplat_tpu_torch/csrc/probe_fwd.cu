@@ -9,7 +9,8 @@
 // (:416, trimmed bookkeeping).
 //
 // What it computes: K1's kernel (composite_fwd.cuh) in one of its first ten
-// variants, which that file describes; `base` is K1's own form.  The plain
+// variants, which that file describes; `base` is K1's own f32 form and
+// `quad_power` its kFormQuad form, the two instantiated again here.  The plain
 // version is gsplat_tpu_torch/tools/probes.py::probe_forward_plain.
 //
 // Compiled for C = 7 (the training path's channels) and for a runtime C, the
@@ -37,7 +38,9 @@ int launch_variant(int variant, const float* tb, int P, int C,
     GSPLAT_P1_CASE(kNoMatmul);
     GSPLAT_P1_CASE(kNoMinmax);
     GSPLAT_P1_CASE(kAlphaOnly);
-    GSPLAT_P1_CASE(kQuadPower);
+    case kQuadPower:  // K1's mxu_power form
+      return launch_forward<CT, kFwdBase, kFormQuad>(
+          tb, P, C, gid, st, ct, num_tiles, grid_x, tile_x, tile_y, o, s);
     GSPLAT_P1_CASE(kNoExp);
     GSPLAT_P1_CASE(kStripped);
     GSPLAT_P1_CASE(kTrimBookkeeping);

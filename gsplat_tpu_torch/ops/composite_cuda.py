@@ -16,8 +16,19 @@ in ops/composite_ref.py: power > 0 and alpha < 1/255 skip, alpha capped at
 would drop below 1e-4 (that instance is not composited).  Under
 differentiation the 0.99 cap is a true ``min`` (no gradient through a capped
 alpha), the JAX package's deliberate deviation from backward.cu.
+
+Both kernels have the compile-time forms of the Pallas kernels (``Form``):
+``mxu_power`` takes the power as per-instance coefficients in tile-relative
+coordinates times the pixel basis (1, x, y, x^2, y^2, xy), with a power
+cut of 1e-4 (composite_pallas.py:130-151, :172); ``feat_packed``
+(``feat_precision="bf16"``) reads the features as RNE bf16 pairs, two per
+f32 word of a [P, 6 + ceil(Cg/2)] table, makes the constant ones channel in
+the kernel, and K2 writes its feature-gradient rows as bf16 pairs again
+(composite_pallas.py:191-223, :718-741).
 """
 from __future__ import annotations
+
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -31,6 +42,7 @@ TILE_PIX = TILE_X * TILE_Y
 ATTR_BASE = 6      # table columns: mean x, mean y, conic a, b, c, opacity
 CHUNK = 128        # instances per step of the plain version
 LOG2E = 1.4426950408889634
+QUAD_POWER_CUT = 1e-4   # composite_pallas.py:172, the mxu_power form's cut
 _KERNEL_BATCH = 256                 # kFwdBatch in composite_fwd.cuh
 _MAX_THREADS = 1024                 # one thread per tile pixel in K1 and K2
 _SMEM_LIMIT = 232448                # bytes of shared memory a CTA can use
@@ -57,25 +69,92 @@ def pixel_coords(tiles, grid_x: int):
     return px.to(torch.float32), py.to(torch.float32)
 
 
-def pair_terms(rows, px, py):
+class Form(NamedTuple):
+    """A compile-time form of K1 and K2: the Pallas kernels' static
+    ``mxu_power`` and ``fp`` (composite_pallas.py:247, :356)."""
+    mxu_power: bool = False     # the power from tile-relative coefficients
+    feat_packed: bool = False   # the features as bf16 pairs in the table
+    with_ones: bool = False     # packed only: a last channel of ones
+
+    @property
+    def name(self) -> str:
+        """The launch counters' suffix: "", "_quad", "_packed" or
+        "_packed_quad"."""
+        return ("_packed" if self.feat_packed else "") + (
+            "_quad" if self.mxu_power else "")
+
+    @property
+    def bits(self) -> int:
+        """The form as the C entries take it: 1 quad, 2 packed."""
+        return int(self.mxu_power) | 2 * int(self.feat_packed)
+
+
+F32 = Form()
+
+
+def tile_basis(tiles, grid_x: int):
+    """Tile origins ox, oy [n, 1] and the tile-local pixel basis qx, qy
+    [1, TILE_PIX], float32."""
+    lane = torch.arange(TILE_PIX, device=tiles.device)
+    ox = ((tiles % grid_x) * TILE_X).to(torch.float32)[:, None]
+    oy = ((tiles // grid_x) * TILE_Y).to(torch.float32)[:, None]
+    qx = (lane % TILE_X).to(torch.float32)[None]
+    qy = (lane // TILE_X).to(torch.float32)[None]
+    return ox, oy, qx, qy
+
+
+def quad_power_coefficients(rows, ox, oy):
+    """[n, K, 6] per-instance coefficients of the power in tile-relative
+    coordinates (composite_pallas.py:131-140) from rows [n, K, 6+C] and the
+    tile origins [n, 1]."""
+    xr = rows[:, :, 0] - ox
+    yr = rows[:, :, 1] - oy
+    A, B, Cc = rows[:, :, 2], rows[:, :, 3], rows[:, :, 4]
+    return torch.stack([
+        -0.5 * (A * xr * xr + Cc * yr * yr) - B * xr * yr,
+        A * xr + B * yr, Cc * yr + B * xr, -0.5 * A, -0.5 * Cc, -B], dim=-1)
+
+
+def quad_power(coef, qx, qy):
+    """power [n, K, TILE_PIX] = coef . (1, qx, qy, qx^2, qy^2, qx qy),
+    summed left to right as K1 and K2 sum it."""
+    c = [coef[:, :, j, None] for j in range(6)]
+    return (c[0] + c[1] * qx + c[2] * qy + c[3] * (qx * qx)
+            + c[4] * (qy * qy) + c[5] * (qx * qy))
+
+
+def pair_terms(rows, px, py, quad=None):
     """``(dx, dy, power, raw)`` [n, K, TILE_PIX] of K instance rows
     [n, K, 6+C] at the pixel centres ``px``, ``py`` [n, TILE_PIX], one
-    rounding per operation; ``raw`` is opacity * G before the 0.99 cap."""
+    rounding per operation; ``raw`` is opacity * G before the 0.99 cap.
+    ``quad`` = ``tile_basis``' (ox, oy, qx, qy) takes the power in the
+    mxu_power form."""
     def col(j):
         return rows[:, :, j, None]                               # [n,K,1]
 
     dx = col(0) - px[:, None, :]                                 # [n,K,PIX]
     dy = col(1) - py[:, None, :]
-    power = (-0.5 * (col(2) * dx * dx + col(4) * dy * dy)
-             - col(3) * dx * dy)
+    if quad is None:
+        power = (-0.5 * (col(2) * dx * dx + col(4) * dy * dy)
+                 - col(3) * dx * dy)
+    else:
+        ox, oy, qx, qy = quad
+        power = quad_power(quad_power_coefficients(rows, ox, oy), qx, qy)
     return dx, dy, power, col(5) * torch.exp2(power * LOG2E)
 
 
-def pair_power_alpha(rows, px, py):
-    """``(power, alpha)`` of ``pair_terms``' pairs.  An instance is skipped
-    where ``power > 0`` or ``alpha < ALPHA_MIN``."""
-    _, _, power, raw = pair_terms(rows, px, py)
-    return power, torch.clamp(raw, max=ALPHA_MAX)
+def logical_table(table, form: Form = F32, Cg: Optional[int] = None):
+    """The [P, 6+C] f32 rows K1 and K2 stage: ``table`` itself, or a packed
+    table [P, 6 + ceil(Cg/2)] with its Cg features unpacked and the ones
+    channel appended when ``form.with_ones`` (what the kernels make of
+    each staged row)."""
+    if not form.feat_packed:
+        return table
+    parts = [table[:, :ATTR_BASE],
+             segment_reduce.unpack_bf16_pairs(table[:, ATTR_BASE:], Cg)]
+    if form.with_ones:
+        parts.append(table.new_ones((table.shape[0], 1)))
+    return torch.cat(parts, dim=1)
 
 
 def _instance_rows(table_p, gauss_id, st, cnt, pos, P: int):
@@ -91,16 +170,20 @@ def _instance_rows(table_p, gauss_id, st, cnt, pos, P: int):
     return table_p[gid.long()], valid & (gid < P), idx
 
 
-def composite_forward_plain(table, gauss_id, starts, counts, grid_x: int):
+def composite_forward_plain(table, gauss_id, starts, counts, grid_x: int,
+                            form: Form = F32, Cg: Optional[int] = None):
     """Plain PyTorch version of K1: the same recurrence, vectorized over a
     batch of tiles and a CHUNK of instances at a time (the chunk-level
     recurrence of composite_tiled.compute_tile_weights, carried across
     chunks, with no per-tile instance cap).  Returns the packed
     [T, C+2, TILE_PIX] output.  It rounds the transmittance like the kernel;
-    only the channel sums are taken in another order."""
+    only the channel sums are taken in another order.  ``form`` and ``Cg``
+    as ``composite_forward`` takes them."""
     dev = table.device
+    table = logical_table(table, form, Cg)
     P, R = table.shape
     C = R - ATTR_BASE
+    cut = QUAD_POWER_CUT if form.mxu_power else 0.0
     num_tiles = starts.shape[0]
     table_p = torch.cat([table, table.new_zeros((1, R))])    # sentinel row P
     out = torch.empty((num_tiles, C + 2, TILE_PIX), dtype=torch.float32,
@@ -111,7 +194,9 @@ def composite_forward_plain(table, gauss_id, starts, counts, grid_x: int):
     for t0 in range(0, num_tiles, tb):
         t1 = min(num_tiles, t0 + tb)
         n = t1 - t0
-        px, py = pixel_coords(torch.arange(t0, t1, device=dev), grid_x)
+        tiles = torch.arange(t0, t1, device=dev)
+        px, py = pixel_coords(tiles, grid_x)
+        quad = tile_basis(tiles, grid_x) if form.mxu_power else None
         st, cnt = starts[t0:t1], counts[t0:t1]
         Tc = torch.ones((n, TILE_PIX), dtype=torch.float32, device=dev)
         done = torch.zeros((n, TILE_PIX), dtype=torch.bool, device=dev)
@@ -123,8 +208,9 @@ def composite_forward_plain(table, gauss_id, starts, counts, grid_x: int):
             pos = c0 + ks                                        # [K]
             rows, valid, _ = _instance_rows(table_p, gauss_id, st, cnt, pos,
                                             P)                   # [n,K,R]
-            power, alpha = pair_power_alpha(rows, px, py)
-            mask = (valid[:, :, None] & (power <= 0.0) & (alpha >= ALPHA_MIN)
+            _, _, power, raw = pair_terms(rows, px, py, quad)
+            alpha = torch.clamp(raw, max=ALPHA_MAX)
+            mask = (valid[:, :, None] & (power <= cut) & (alpha >= ALPHA_MIN)
                     & ~done[:, None, :])
             a = torch.where(mask, alpha, 0.0)
             # Transmittance as a running product that starts from the carried
@@ -169,13 +255,31 @@ def _check_tile_inputs(table, gauss_id, starts, counts, grid_x: int):
         f"{num_tiles} tiles do not form rows of grid_x={grid_x}")
 
 
+def _channels(table, form: Form, Cg: Optional[int]) -> int:
+    """The C channels K1 composites from ``table`` in ``form``: the table's
+    own [P, 6+C] columns, or, packed, the Cg features of a
+    [P, 6 + ceil(Cg/2)] table and the ones channel made in the kernel."""
+    req = _kernels.require
+    width = table.shape[1] - ATTR_BASE
+    if not form.feat_packed:
+        req(not form.with_ones, "with_ones is a form of the packed table")
+        return width
+    req(Cg is not None and Cg >= 1,
+        f"the packed form needs Cg >= 1 stored features, got {Cg}")
+    req(width == (Cg + 1) // 2,
+        f"a packed table of Cg={Cg} features is [P, {ATTR_BASE + (Cg + 1) // 2}]"
+        f", got {tuple(table.shape)}")
+    return Cg + int(form.with_ones)
+
+
 def _check_backward_inputs(table, gauss_id, starts, counts, grid_x: int,
-                           packed, d_packed, Cg: int):
-    """What K2 takes beyond K1's inputs: ``Cg`` and the two packed arrays."""
+                           packed, d_packed, Cg: int, form: Form = F32):
+    """What K2 takes beyond K1's inputs: ``Cg`` and the two packed arrays.
+    Returns the C channels."""
     req = _kernels.require
     _check_tile_inputs(table, gauss_id, starts, counts, grid_x)
     num_tiles = starts.shape[0]
-    C = table.shape[1] - ATTR_BASE
+    C = _channels(table, form, Cg)
     req(0 <= Cg <= C, f"Cg={Cg} outside [0, C={C}]")
     for name, t in (("packed", packed), ("d_packed", d_packed)):
         req(t.dtype == torch.float32, f"{name} must be float32, got {t.dtype}")
@@ -185,53 +289,70 @@ def _check_backward_inputs(table, gauss_id, starts, counts, grid_x: int,
         req(t.is_contiguous(), f"{name} must be contiguous")
         req(t.device == table.device,
             f"{name} is on {t.device}, expected {table.device}")
+    return C
 
 
-def composite_forward(table, gauss_id, starts, counts, grid_x: int):
+def composite_forward(table, gauss_id, starts, counts, grid_x: int,
+                      form: Form = F32, Cg: Optional[int] = None):
     """K1 wrapper: packed [T, C+2, TILE_PIX] f32 (C composited channels,
     T_final, n_contrib) for the per-gaussian attribute ``table`` [P, 6+C]
     (mean2d, conic, opacity, features) and the sorted ``gauss_id`` [I] with
     per-tile ``starts``/``counts`` [T] (already clamped into [0, I)).
+    ``form.feat_packed``: the table is [P, 6 + ceil(Cg/2)] with the Cg
+    features as bf16 pairs, and C = Cg + ``form.with_ones``.
     A CPU tensor goes to ``composite_forward_plain``; a CUDA tensor
-    launches ``csrc/composite_fwd.cu``."""
+    launches ``csrc/composite_fwd.cu`` (the f32 form) or
+    ``csrc/composite_fwd_forms.cu``, each form counted apart."""
     dev = table.device
     req = _kernels.require
     _check_tile_inputs(table, gauss_id, starts, counts, grid_x)
+    C = _channels(table, form, Cg)
     num_tiles = starts.shape[0]
     if dev.type == "cpu":
-        return composite_forward_plain(table, gauss_id, starts, counts, grid_x)
+        return composite_forward_plain(table, gauss_id, starts, counts, grid_x,
+                                       form, Cg)
     req(dev.type == "cuda", f"unsupported device {dev}")
-    P, R = table.shape
-    C = R - ATTR_BASE
+    P = table.shape[0]
     req(TILE_PIX <= _MAX_THREADS,
         f"TILE_X*TILE_Y={TILE_PIX} exceeds {_MAX_THREADS} threads")
-    req(_KERNEL_BATCH * (R + 1) * 4 <= _SMEM_LIMIT,
+    # a batch's rows, ids and (mxu_power) six coefficients per instance
+    req(_KERNEL_BATCH * (ATTR_BASE + C + 1 + 6 * form.mxu_power) * 4
+        <= _SMEM_LIMIT,
         f"C={C} channels exceed the kernel's shared-memory batch")
     out = torch.empty((num_tiles, C + 2, TILE_PIX), dtype=torch.float32,
                       device=dev)
     lib = _kernels.lib()
+    tail = (gauss_id.data_ptr(), starts.data_ptr(), counts.data_ptr(),
+            num_tiles, grid_x, TILE_X, TILE_Y, out.data_ptr(),
+            _kernels.stream_of(table))
     with torch.cuda.device(dev):
-        err = lib.gsplat_composite_forward(
-            table.data_ptr(), P, C, gauss_id.data_ptr(), starts.data_ptr(),
-            counts.data_ptr(), num_tiles, grid_x, TILE_X, TILE_Y,
-            out.data_ptr(), _kernels.stream_of(table))
-    _kernels.check(err, "composite_forward")
-    _kernels.launch_counts["composite_forward"] += 1
+        if form == F32:
+            err = lib.gsplat_composite_forward(table.data_ptr(), P, C, *tail)
+        else:
+            err = lib.gsplat_composite_forward_form(
+                form.bits, table.data_ptr(), P, C,
+                Cg if form.feat_packed else C, *tail)
+    name = "composite_forward" + form.name
+    _kernels.check(err, name)
+    _kernels.launch_counts[name] += 1
     return out
 
 
 def composite_backward_plain(table, gauss_id, starts, counts, grid_x: int,
-                             packed, d_packed, Cg: int):
+                             packed, d_packed, Cg: int, form: Form = F32):
     """Plain PyTorch version of K2: the same forward walk as
     ``composite_forward_plain`` (tile batches, CHUNK instances at a time,
     transmittance and the prefix of w*g carried across chunks), gated by
     K1's ``n_contrib``.  Returns the per-instance gradient rows
     [I, 6+Cg]: d mean2d, d conic, d opacity, d of the first Cg features;
     rows of slots no tile owns, and of instances past a tile's last
-    contributor, are zero."""
+    contributor, are zero.  In the packed form the Cg feature columns are
+    RNE bf16 pairs, [I, 6 + ceil(Cg/2)], as K2 writes them."""
     dev = table.device
+    table = logical_table(table, form, Cg)
     P, R = table.shape
     C = R - ATTR_BASE
+    cut = QUAD_POWER_CUT if form.mxu_power else 0.0
     I = gauss_id.shape[0]
     num_tiles = starts.shape[0]
     table_p = torch.cat([table, table.new_zeros((1, R))])    # sentinel row P
@@ -241,7 +362,9 @@ def composite_backward_plain(table, gauss_id, starts, counts, grid_x: int,
     for t0 in range(0, num_tiles, tb):
         t1 = min(num_tiles, t0 + tb)
         n = t1 - t0
-        px, py = pixel_coords(torch.arange(t0, t1, device=dev), grid_x)
+        tiles = torch.arange(t0, t1, device=dev)
+        px, py = pixel_coords(tiles, grid_x)
+        quad = tile_basis(tiles, grid_x) if form.mxu_power else None
         st, cnt = starts[t0:t1], counts[t0:t1]
         fwd, dpk = packed[t0:t1], d_packed[t0:t1]
         n_contrib = fwd[:, C + 1]                                # [n,PIX]
@@ -256,9 +379,9 @@ def composite_backward_plain(table, gauss_id, starts, counts, grid_x: int,
             pos = c0 + ks                                        # [K]
             rows, valid, idx = _instance_rows(table_p, gauss_id, st, cnt,
                                               pos, P)            # [n,K,R]
-            dx, dy, power, raw = pair_terms(rows, px, py)
+            dx, dy, power, raw = pair_terms(rows, px, py, quad)
             alpha = torch.clamp(raw, max=ALPHA_MAX)
-            contrib = (valid[:, :, None] & (power <= 0.0)
+            contrib = (valid[:, :, None] & (power <= cut)
                        & (alpha >= ALPHA_MIN)
                        & ((pos + 1)[None, :, None] <= n_contrib[:, None, :]))
             a = torch.where(contrib, alpha, 0.0)
@@ -291,69 +414,118 @@ def composite_backward_plain(table, gauss_id, starts, counts, grid_x: int,
                     torch.where(live, s0 / torch.where(live, op, 1.0), 0.0)]
             cols += [(w * d_out[:, None, c]).sum(-1) for c in range(Cg)]
             out[idx[valid]] = torch.stack(cols, dim=-1)[valid]
+    if form.feat_packed:
+        out = torch.cat([out[:, :ATTR_BASE], segment_reduce.pack_bf16_pairs(
+            out[:, ATTR_BASE:])], dim=1)
     return out
 
 
 def composite_backward(table, gauss_id, starts, counts, grid_x: int,
-                       packed, d_packed, Cg: int):
+                       packed, d_packed, Cg: int, form: Form = F32):
     """K2 wrapper: the per-instance gradient rows [I, 6+Cg] f32 (d mean2d,
     d conic, d opacity, d of the first ``Cg`` of the C features) from K1's
     inputs, its ``packed`` output [T, C+2, TILE_PIX] and the cotangent
     ``d_packed`` of the same shape (the n_contrib row's is ignored).  Every
     row is defined: zero for pad slots and for instances past their tile's
-    last contributor.  A CPU tensor goes to ``composite_backward_plain``; a
-    CUDA tensor launches ``csrc/composite_bwd.cu``."""
+    last contributor.  In the packed form (``composite_forward``'s) Cg is
+    the number of stored features and the rows are [I, 6 + ceil(Cg/2)],
+    the feature gradients as RNE bf16 pairs.  A CPU tensor goes to
+    ``composite_backward_plain``; a CUDA tensor launches
+    ``csrc/composite_bwd.cu`` (the f32 form) or
+    ``csrc/composite_bwd_forms.cu``, each form counted apart."""
     dev = table.device
     req = _kernels.require
-    _check_backward_inputs(table, gauss_id, starts, counts, grid_x, packed,
-                           d_packed, Cg)
+    C = _check_backward_inputs(table, gauss_id, starts, counts, grid_x,
+                               packed, d_packed, Cg, form)
     num_tiles = starts.shape[0]
-    P, R = table.shape
-    C = R - ATTR_BASE
+    P = table.shape[0]
     if dev.type == "cpu":
         return composite_backward_plain(table, gauss_id, starts, counts,
-                                        grid_x, packed, d_packed, Cg)
+                                        grid_x, packed, d_packed, Cg, form)
     req(dev.type == "cuda", f"unsupported device {dev}")
     req(TILE_PIX <= _MAX_THREADS and TILE_PIX % 32 == 0,
         f"TILE_X*TILE_Y={TILE_PIX} must be a multiple of 32 up to "
         f"{_MAX_THREADS}")
     lib = _kernels.lib()
+    width = ATTR_BASE + ((Cg + 1) // 2 if form.feat_packed else Cg)
     # the kernel writes the rows its walk reaches; the rest stay zero
-    d_inst = torch.zeros((gauss_id.shape[0], ATTR_BASE + Cg),
-                         dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.gsplat_composite_backward(
-            table.data_ptr(), P, C, Cg, gauss_id.data_ptr(),
+    d_inst = torch.zeros((gauss_id.shape[0], width), dtype=torch.float32,
+                         device=dev)
+    args = (table.data_ptr(), P, C, Cg, gauss_id.data_ptr(),
             starts.data_ptr(), counts.data_ptr(), num_tiles, grid_x, TILE_X,
             TILE_Y, packed.data_ptr(), d_packed.data_ptr(),
             d_inst.data_ptr(), _kernels.stream_of(table))
-    _kernels.check(err, "composite_backward")
-    _kernels.launch_counts["composite_backward"] += 1
+    with torch.cuda.device(dev):
+        if form == F32:
+            err = lib.gsplat_composite_backward(*args)
+        else:
+            err = lib.gsplat_composite_backward_form(form.bits, *args)
+    name = "composite_backward" + form.name
+    _kernels.check(err, name)
+    _kernels.launch_counts[name] += 1
+    return d_inst
+
+
+def scrub_nonfinite(d_inst, form: Form = F32):
+    """Zeroes, in place, the non-finite values of K2's rows before they are
+    reduced (the finite half of composite_pallas.py:666-677's scrub; the
+    written half is K2's own zero fill).  The packed feature words are left
+    as they are: a bf16 pair can alias an f32 inf or NaN (:670-676)."""
+    cols = d_inst[:, :ATTR_BASE] if form.feat_packed else d_inst
+    torch.nan_to_num_(cols, nan=0.0, posinf=0.0, neginf=0.0)
     return d_inst
 
 
 class _Composite(torch.autograd.Function):
-    """K1 forward; backward = K2, then the gather's adjoint (sort + K4)."""
+    """K1 forward; backward = K2, the finite scrub, then the gather's
+    adjoint (``segment_reduce.reduce_rows``: the bf16 rounding and the
+    packed tail, the sort and K4)."""
 
     @staticmethod
-    def forward(ctx, table, gauss_id, starts, counts, grid_x, Cg):
-        packed = composite_forward(table, gauss_id, starts, counts, grid_x)
+    def forward(ctx, table, gauss_id, starts, counts, grid_x, Cg, form=F32,
+                grad_precision="f32"):
+        packed = composite_forward(table, gauss_id, starts, counts, grid_x,
+                                   form, Cg)
         ctx.save_for_backward(table, gauss_id, starts, counts, packed)
-        ctx.grid_x, ctx.Cg = grid_x, Cg
+        ctx.grid_x, ctx.Cg, ctx.form = grid_x, Cg, form
+        ctx.grad_precision = grad_precision
         return packed
 
     @staticmethod
     def backward(ctx, d_packed):
         table, gauss_id, starts, counts, packed = ctx.saved_tensors
         P, R = table.shape
-        d_inst = composite_backward(
+        form = ctx.form
+        d_inst = scrub_nonfinite(composite_backward(
             table, gauss_id, starts, counts, ctx.grid_x, packed,
-            d_packed.to(torch.float32).contiguous(), ctx.Cg)
-        d_table = segment_reduce.scatter_add_rows(d_inst, gauss_id, P)
+            d_packed.to(torch.float32).contiguous(), ctx.Cg, form), form)
+        d_table = segment_reduce.reduce_rows(
+            d_inst, gauss_id, P, ctx.grad_precision,
+            R - ATTR_BASE if form.feat_packed else 0)
         if d_table.shape[1] < R:     # the constant last feature: no gradient
             d_table = torch.cat(
                 [d_table, d_table.new_zeros((P, R - d_table.shape[1]))], dim=1)
-        return d_table, None, None, None, None, None
+        return d_table, None, None, None, None, None, None, None
+
+
+class _PackFeats(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, feats):
+        ctx.Cg = feats.shape[1]
+        return segment_reduce.pack_bf16_pairs(feats)
+
+    @staticmethod
+    def backward(ctx, d_packed):
+        return segment_reduce.unpack_bf16_pairs(d_packed, ctx.Cg)
+
+
+def pack_feats(feats, Cg: int):
+    """[P, Cg] f32 -> [P, ceil(Cg/2)] RNE bf16 pairs, whose adjoint takes
+    packed per-gaussian gradient pairs (``reduce_rows``' packed tail) and
+    unpacks them (composite_pallas.py::pack_feats :226-244)."""
+    _kernels.require(feats.shape[1] == Cg,
+                     f"feats has {feats.shape[1]} columns, Cg={Cg}")
+    return _PackFeats.apply(feats)
 
 
 def unpack_tiles(packed, C: int, width: int, height: int):
@@ -368,17 +540,29 @@ def unpack_tiles(packed, C: int, width: int, height: int):
 
 
 def composite_cuda(means2d, conic, opacity, feats, bins: BinningOut,
-                   width: int, height: int, const_last_feat: bool = False):
+                   width: int, height: int, const_last_feat: bool = False,
+                   grad_precision: str = "f32", mxu_power: bool = False,
+                   feat_precision: str = "f32"):
     """Tiled compositor: returns (img [C,H,W] pre-background, T_final [H,W],
     overflow []), differentiable in means2d, conic, opacity and feats.
     ``const_last_feat``: the caller marks feats' last column as a constant
-    (the weight/ones channel); its gradient is never computed or reduced."""
+    (the weight/ones channel); its gradient is never computed or reduced.
+    ``grad_precision``, ``mxu_power`` and ``feat_precision`` as the JAX
+    package's ``composite_pallas`` takes them: bf16 per-instance gradient
+    rows, the tile-relative quadratic power, and the features packed as
+    bf16 pairs with the ones channel made in the kernels."""
     grid_x = (width + TILE_X - 1) // TILE_X
     C = feats.shape[1]
-    table = torch.cat([means2d, conic, opacity[:, None], feats],
+    Cg = C - 1 if const_last_feat else C
+    feat_packed = feat_precision == "bf16"
+    form = Form(bool(mxu_power), feat_packed,
+                feat_packed and bool(const_last_feat))
+    cols = (pack_feats(feats[:, :Cg].to(torch.float32), Cg) if feat_packed
+            else feats)
+    table = torch.cat([means2d, conic, opacity[:, None], cols],
                       dim=1).to(torch.float32).contiguous()
     starts, counts = tile_ranges(bins)
     packed = _Composite.apply(table, bins.gauss_id.contiguous(), starts,
-                              counts, grid_x, C - 1 if const_last_feat else C)
+                              counts, grid_x, Cg, form, grad_precision)
     img, T_final = unpack_tiles(packed, C, width, height)
     return img, T_final, bins.overflow

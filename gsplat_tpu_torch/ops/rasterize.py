@@ -8,7 +8,10 @@ as the JAX Pallas path does, so both packages bin identically.
 Gradients: preprocess and the background term are plain autograd; the
 composite is one ``torch.autograd.Function`` (forward kernel K1, backward
 kernel K2, then the gather's adjoint with the segment-sum kernel K4).
-Binning is index bookkeeping and sees detached inputs.
+Binning is index bookkeeping and sees detached inputs.  ``grad_precision``,
+``mxu_power`` and ``feat_precision`` select the forms of K1 and K2 and of
+the reduction around K4 as in the JAX package's Pallas path
+(``ops/composite_cuda.py``).
 
 ``means2d_offset`` is the gradient tap that stands in for the reference's
 ``screenspace_points``: pass zeros [P,2] that require grad; its gradient is
@@ -42,7 +45,8 @@ class RasterizeConfig:
     tile_batch: int = 32            # JAX jnp path only; unused here
     backend: str = "auto"           # only "auto": kernel K1 (its plain
                                     # version on CPU tensors)
-    grad_precision: str = "f32"     # "bf16" grad reduce: not ported yet
+    grad_precision: str = "f32"     # "bf16": per-instance grad rows
+                                    # rounded to bf16 before the f32 sum
     cull: str = "none"              # "exact": drop instances whose ellipse
                                     # misses the tile (extras form of K3)
     max_rows: int = 0               # row capacity for cull="exact"
@@ -50,8 +54,9 @@ class RasterizeConfig:
     full_width: int = 0             # crop rendering: dims of the FULL camera
     full_height: int = 0            # (0 = width/height), with pixel_offset
     render_only: bool = False       # rgb only; alpha = 1 - T_final
-    mxu_power: bool = False         # TPU matmul layout: not ported
-    feat_precision: str = "f32"     # "bf16" feature packing: not ported
+    mxu_power: bool = False         # power from tile-relative
+                                    # coefficients, power cut 1e-4
+    feat_precision: str = "f32"     # "bf16": features as bf16 pairs
 
     @property
     def grid_x(self):
@@ -66,16 +71,11 @@ def _check_config(config: RasterizeConfig):
     if config.backend != "auto":
         raise ValueError(f"backend={config.backend!r}: the port has one "
                          "compositor, kernel K1 (backend='auto')")
-    unported = {
-        "feat_precision": (config.feat_precision, "f32"),
-        "grad_precision": (config.grad_precision, "f32"),
-        "mxu_power": (config.mxu_power, False),
-    }
-    for name, (value, ported) in unported.items():
-        if value != ported:
-            raise NotImplementedError(
-                f"RasterizeConfig.{name}={value!r} is not ported yet; see "
-                "ROADMAP.md, Queue 1 item 2")
+    for name in ("grad_precision", "feat_precision"):
+        value = getattr(config, name)
+        if value not in ("f32", "bf16"):
+            raise ValueError(f"RasterizeConfig.{name} must be 'f32' or "
+                             f"'bf16', got {value!r}")
 
 
 def rasterize(
@@ -156,7 +156,10 @@ def rasterize(
     chw, T_final, overflow = composite_cuda(
         pre.means2d, pre.conic, pre.opacity, feats, bins,
         config.width, config.height,
-        const_last_feat=not config.render_only)
+        const_last_feat=not config.render_only,
+        grad_precision=config.grad_precision,
+        mxu_power=config.mxu_power,
+        feat_precision=config.feat_precision)
 
     render = chw[0:3] + T_final[None] * on_dev(bg)[:, None, None]
     out = {

@@ -9,8 +9,13 @@ followed by K4, which sums the now contiguous segments in index order with
 no atomics.  K4 reads its rows through the sort's permutation, so only the
 ids are sorted and no sorted copy of the ``[I, R]`` rows is ever made.
 
-Only ``grad_precision="f32"`` and ``packed_tail=0`` are ported; the bf16
-pair options raise (ROADMAP.md, Queue 1).
+The bf16 pair options of ``gather_rows`` (``grad_precision="bf16"``,
+``packed_tail``) are plain torch around K4, as in the JAX package: the
+per-instance rows are rounded to bf16 and the packed columns unpacked
+before the f32 sum, and the per-gaussian sums of the packed columns are
+packed again (``reduce_rows``).  The bit arithmetic runs on
+``Tensor.view(torch.int32)``, whose wrapping adds and masks give the bits of
+the JAX package's uint32 forms.
 """
 from __future__ import annotations
 
@@ -80,28 +85,96 @@ def scatter_add_rows(d_rows: torch.Tensor, idx: torch.Tensor,
     return segment_sum_sorted(d_rows, sids, num_rows, perm)
 
 
+def round_bf16_bits(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> its round-to-nearest-even bf16 in the top 16 bits, as the f32
+    word (composite_pallas.py::_round_bf16_bits :207-211): exact for every
+    finite value, one that rounds past the largest bf16 becoming inf."""
+    u = x.to(torch.float32).contiguous().view(torch.int32)
+    return ((u + 0x7FFF + ((u >> 16) & 1)) & -65536).view(torch.float32)
+
+
+def pack_bf16_pairs(x: torch.Tensor) -> torch.Tensor:
+    """[I, R] f32 -> [I, ceil(R/2)] f32 words of RNE bf16 pairs: element
+    2j in the high half, 2j+1 in the low half, a zero column after an odd
+    width (segment_reduce.py::_pack_bf16_pairs :138)."""
+    if x.shape[1] % 2:
+        x = torch.cat([x, x.new_zeros((x.shape[0], 1))], dim=1)
+    bits = round_bf16_bits(x).view(torch.int32)
+    lo = (bits[:, 1::2] >> 16) & 0xFFFF
+    return (bits[:, 0::2] | lo).contiguous().view(torch.float32)
+
+
+def unpack_bf16_pairs(p: torch.Tensor, R: int) -> torch.Tensor:
+    """Inverse of ``pack_bf16_pairs``: [I, ceil(R/2)] -> [I, R] f32, each
+    bf16 as the f32 it extends (segment_reduce.py::_unpack_bf16_pairs
+    :153): hi = word & 0xFFFF0000, lo = word << 16."""
+    u = p.contiguous().view(torch.int32)
+    both = torch.stack([u & -65536, u << 16], dim=2).reshape(u.shape[0], -1)
+    return both.view(torch.float32)[:, :R]
+
+
+def _check_options(grad_precision: str, packed_tail: int, width: int):
+    _kernels.require(grad_precision in ("f32", "bf16"),
+                     f"grad_precision must be 'f32' or 'bf16', got "
+                     f"{grad_precision!r}")
+    _kernels.require(0 <= packed_tail <= width,
+                     f"packed_tail={packed_tail} outside [0, {width}]")
+
+
+def reduce_rows(d_rows: torch.Tensor, idx: torch.Tensor, num_rows: int,
+                grad_precision: str = "f32",
+                packed_tail: int = 0) -> torch.Tensor:
+    """The adjoint of ``table[idx]`` in ``gather_rows``' conventions
+    (segment_reduce.py::_gr_bwd :190-220): [num_rows, R] from the rows
+    ``d_rows`` [I, R].  ``grad_precision="bf16"`` rounds each of the plain
+    columns (all but the last ``packed_tail``) to bf16; the last
+    ``packed_tail`` columns hold bf16 pairs, unpacked here; the rows are
+    then summed in f32 (the id sort and K4) and the sums of the packed
+    columns packed again.  The JAX package carries the rounded and packed
+    rows through its sort; here K4 reads the rows through the sort's
+    permutation, so rounding each row before K4 is the same."""
+    R = d_rows.shape[1]
+    _check_options(grad_precision, packed_tail, R)
+    n_plain = R - packed_tail
+    vals = d_rows.to(torch.float32)
+    plain = vals[:, :n_plain]
+    if grad_precision == "bf16":
+        plain = round_bf16_bits(plain)
+    if packed_tail:
+        vals = torch.cat([plain, unpack_bf16_pairs(vals[:, n_plain:],
+                                                   2 * packed_tail)], dim=1)
+    else:
+        vals = plain
+    d_table = scatter_add_rows(vals.contiguous(), idx, num_rows)
+    if packed_tail:
+        d_table = torch.cat([d_table[:, :n_plain],
+                             pack_bf16_pairs(d_table[:, n_plain:])], dim=1)
+    return d_table
+
+
 class _GatherRows(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, table, idx):
+    def forward(ctx, table, idx, grad_precision, packed_tail):
         ctx.save_for_backward(idx)
         ctx.num_rows = table.shape[0]
+        ctx.grad_precision, ctx.packed_tail = grad_precision, packed_tail
         return table[idx.long()]
 
     @staticmethod
     def backward(ctx, d_out):
         (idx,) = ctx.saved_tensors
-        d_table = scatter_add_rows(
-            d_out.to(torch.float32).contiguous(), idx, ctx.num_rows)
-        return d_table, None
+        d_table = reduce_rows(d_out, idx, ctx.num_rows, ctx.grad_precision,
+                              ctx.packed_tail)
+        return d_table, None, None, None
 
 
 def gather_rows(table: torch.Tensor, idx: torch.Tensor,
                 grad_precision: str = "f32", packed_tail: int = 0):
     """``table[idx]`` (table [P, R] f32, idx [I] int32 in [0, P)) whose
-    backward is the sort + K4 reduction instead of a scatter-add."""
-    if grad_precision != "f32" or packed_tail != 0:
-        raise NotImplementedError(
-            f"gather_rows(grad_precision={grad_precision!r}, packed_tail="
-            f"{packed_tail}): the bf16 pair options are not ported yet; see "
-            "ROADMAP.md, Queue 1")
-    return _GatherRows.apply(table, idx)
+    backward is ``reduce_rows``: the sort + K4 reduction instead of a
+    scatter-add, with ``grad_precision="bf16"`` rounding the per-instance
+    rows to bf16 and the last ``packed_tail`` columns carrying bf16 pairs,
+    in the cotangent as in the table (the JAX package's
+    ``gather_rows``)."""
+    _check_options(grad_precision, packed_tail, table.shape[1])
+    return _GatherRows.apply(table, idx, grad_precision, packed_tail)

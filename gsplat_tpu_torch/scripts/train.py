@@ -13,8 +13,8 @@ point_cloud.ply``, ``eval_log.jsonl`` at the test iterations and
 
 Not ported yet, and refused before anything is written: the live-viewer
 socket (pass ``--disable_gui_server``; ROADMAP Queue 1 item 8),
-``--multihost`` and multi-device training (item 7), the appearance
-embedding (item 6) and the bf16 precisions (item 2).
+``--multihost`` and multi-device training (item 7) and the appearance
+embedding (item 6).
 """
 from __future__ import annotations
 

@@ -30,7 +30,6 @@ BWD_VARIANTS = ("base", "moments_basis", "exp", "no_alpha", "no_moments",
 LOAD_VARIANTS = ("load_only", "load_only_4tiles", "compute_resident")
 GATHER_VARIANTS = ("row_gather", "block_copy")
 DTYPE_VARIANTS = ("f32", "bf16")
-QUAD_POWER_CUT = 1e-4          # composite_pallas.py:172, mxu_power's cut
 TILES_PER_CTA = 4              # load_only_4tiles
 _GATHER_BASE = len(LOAD_VARIANTS)   # P3's enum: the gathers follow the loads
 
@@ -48,50 +47,6 @@ def _launch(counter, fn_name, *args):
     _kernels.launch_counts[counter] += 1
 
 
-def _tile_basis(tiles, grid_x):
-    """Tile origins ox, oy [n, 1] and the tile-local pixel basis qx, qy
-    [1, TILE_PIX], float32."""
-    lane = torch.arange(comp.TILE_PIX, device=tiles.device)
-    ox = ((tiles % grid_x) * TILE_X).to(torch.float32)[:, None]
-    oy = ((tiles // grid_x) * TILE_Y).to(torch.float32)[:, None]
-    qx = (lane % TILE_X).to(torch.float32)[None]
-    qy = (lane // TILE_X).to(torch.float32)[None]
-    return ox, oy, qx, qy
-
-
-def quad_power_coefficients(rows, ox, oy):
-    """[n, K, 6] per-instance coefficients of the power in tile-relative
-    coordinates (composite_pallas.py:131-140) from rows [n, K, 6+C] and the
-    tile origins [n, 1]."""
-    xr = rows[:, :, 0] - ox
-    yr = rows[:, :, 1] - oy
-    A, B, Cc = rows[:, :, 2], rows[:, :, 3], rows[:, :, 4]
-    return torch.stack([
-        -0.5 * (A * xr * xr + Cc * yr * yr) - B * xr * yr,
-        A * xr + B * yr, Cc * yr + B * xr, -0.5 * A, -0.5 * Cc, -B], dim=-1)
-
-
-def quad_power(coef, qx, qy):
-    """power [n, K, TILE_PIX] = coef . (1, qx, qy, qx^2, qy^2, qx qy),
-    summed left to right as P1 sums it."""
-    c = [coef[:, :, j, None] for j in range(6)]
-    return (c[0] + c[1] * qx + c[2] * qy + c[3] * (qx * qx)
-            + c[4] * (qy * qy) + c[5] * (qx * qy))
-
-
-def quad_power_alpha(rows, valid, ox, oy, qx, qy):
-    """``quad_power``'s (alpha, mask) [n, K, TILE_PIX] for rows [n, K, 6+C]
-    with ``valid`` [n, K]: alpha = min(0.99, opacity exp2(power log2 e)),
-    a pair kept where power <= 1e-4 and alpha >= 1/255
-    (composite_pallas.py::_chunk_alpha with mxu_power)."""
-    power = quad_power(quad_power_coefficients(rows, ox, oy), qx, qy)
-    alpha = torch.clamp(rows[:, :, 5, None] * torch.exp2(power * comp.LOG2E),
-                        max=ALPHA_MAX)
-    mask = (valid[:, :, None] & (power <= QUAD_POWER_CUT)
-            & (alpha >= ALPHA_MIN))
-    return alpha, mask
-
-
 # ----------------------------------------------------------------- P1 ---
 
 def probe_forward_plain(variant, table, gauss_id, starts, counts,
@@ -101,6 +56,9 @@ def probe_forward_plain(variant, table, gauss_id, starts, counts,
     ``composite_cuda.composite_forward_plain``: tile batches, CHUNK
     instances at a time, the transmittance as a running product."""
     _variant(variant, FWD_VARIANTS)
+    if variant == "quad_power":      # K1's mxu_power form
+        return comp.composite_forward_plain(table, gauss_id, starts, counts,
+                                            grid_x, comp.Form(mxu_power=True))
     strip = variant in ("stripped", "no_exp")
     terminate = variant not in ("alpha_only", "no_scan") and not strip
     one_channel = variant in ("no_matmul", "alpha_only")
@@ -117,9 +75,7 @@ def probe_forward_plain(variant, table, gauss_id, starts, counts,
     for t0 in range(0, num_tiles, tb):
         t1 = min(num_tiles, t0 + tb)
         n = t1 - t0
-        tiles = torch.arange(t0, t1, device=dev)
-        px, py = comp.pixel_coords(tiles, grid_x)
-        ox, oy, qx, qy = _tile_basis(tiles, grid_x)
+        px, py = comp.pixel_coords(torch.arange(t0, t1, device=dev), grid_x)
         st, cnt = starts[t0:t1], counts[t0:t1]
         Tc = torch.ones((n, comp.TILE_PIX), dtype=torch.float32, device=dev)
         done = torch.zeros((n, comp.TILE_PIX), dtype=torch.bool, device=dev)
@@ -132,15 +88,12 @@ def probe_forward_plain(variant, table, gauss_id, starts, counts,
             pos = c0 + ks
             rows, valid, _ = comp._instance_rows(table_p, gauss_id, st, cnt,
                                                  pos, P)
-            if variant == "quad_power":
-                alpha, mask = quad_power_alpha(rows, valid, ox, oy, qx, qy)
-            else:
-                _, _, power, raw = comp.pair_terms(rows, px, py)
-                if variant == "no_exp":
-                    raw = rows[:, :, 5, None] * (1.0 + power)
-                alpha = torch.clamp(raw, max=ALPHA_MAX)
-                mask = (valid[:, :, None] & (power <= 0.0)
-                        & (alpha >= ALPHA_MIN))
+            _, _, power, raw = comp.pair_terms(rows, px, py)
+            if variant == "no_exp":
+                raw = rows[:, :, 5, None] * (1.0 + power)
+            alpha = torch.clamp(raw, max=ALPHA_MAX)
+            mask = (valid[:, :, None] & (power <= 0.0)
+                    & (alpha >= ALPHA_MIN))
             a = torch.where(mask, alpha, 0.0)
             if variant == "alpha_only":
                 acc[:, 0] += torch.sum(a, dim=1)
@@ -232,7 +185,7 @@ def probe_backward_plain(variant, table, gauss_id, starts, counts,
         n = t1 - t0
         tiles = torch.arange(t0, t1, device=dev)
         px, py = comp.pixel_coords(tiles, grid_x)
-        ox, oy, qx, qy = _tile_basis(tiles, grid_x)
+        ox, oy, qx, qy = comp.tile_basis(tiles, grid_x)
         st, cnt = starts[t0:t1], counts[t0:t1]
         fwd, dpk = packed[t0:t1], d_packed[t0:t1]
         n_contrib = fwd[:, C + 1]                                # [n,PIX]

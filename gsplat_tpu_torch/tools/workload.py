@@ -51,6 +51,13 @@ K1_STEP_OPS = 3
 # five moment products (5), the T update (2), the feature products (Cg) and
 # one add per summed value (6 + Cg): 24 + 2C + 2Cg.
 K2_TEST_OPS = 18
+# Integer operations of the packed forms (feat_precision="bf16"): staging
+# unpacks each stored feature of a staged real instance with a mask or a
+# shift and the select between them (2); K2 packs each pair word of a row it
+# writes from two sums, each rounded by _round_bf16_bits' shift, mask, two
+# adds and a mask (5), then a shift and an or (12 a word).
+UNPACK_OPS = 2
+PACK_OPS = 12
 
 
 def k2_pair_ops(C, Cg):
@@ -215,10 +222,13 @@ def _tile_batches(table, starts, counts, grid_x):
         yield slice(t0, t1), px, py, table_p, ks
 
 
-def k1_pair_counts(table, gauss_id, starts, counts, grid_x, n_contrib):
+def k1_pair_counts(table, gauss_id, starts, counts, grid_x, n_contrib,
+                   quad=False):
     """K1's (pixel, instance) pairs on these inputs, given its per-pixel
     ``n_contrib`` [T, TILE_PIX] (1-based position of the last composited
-    instance): dict(tested, composited, stopping, limits).
+    instance): dict(tested, composited, stopping, limits).  ``quad``: the
+    skip tests of the mxu_power form (its power and its 1e-4 cut); the
+    f32 [P, 6+C] table either way (the pairs see only its geometry).
 
     Before position n_contrib every instance that passes the skip tests is
     composited.  The first one that passes them after it stops the pixel;
@@ -240,8 +250,13 @@ def k1_pair_counts(table, gauss_id, starts, counts, grid_x, n_contrib):
             pos = c0 + ks
             rows, valid, _ = comp._instance_rows(table_p, gauss_id, starts[sl],
                                                  counts[sl], pos, P)
-            power, alpha = comp.pair_power_alpha(rows, px, py)
-            passes = valid[:, :, None] & (power <= 0.0) & (alpha >= ALPHA_MIN)
+            basis = (comp.tile_basis(torch.arange(
+                sl.start, sl.stop, device=table.device), grid_x)
+                if quad else None)
+            _, _, power, raw = comp.pair_terms(rows, px, py, basis)
+            alpha = torch.clamp(raw, max=comp.ALPHA_MAX)
+            cut = comp.QUAD_POWER_CUT if quad else 0.0
+            passes = valid[:, :, None] & (power <= cut) & (alpha >= ALPHA_MIN)
             before = pos[None, :, None] < nc[:, None, :]
             composited += int((passes & before).sum())
             stop = torch.minimum(stop, torch.where(
@@ -425,18 +440,25 @@ def bwd_ops(variant: str, C: int, Cg: int, s: dict) -> int:
     }[variant]
 
 
-def staged_bytes(w: Workload, limits=None) -> int:
-    """Bytes K1's staging reads: each staged instance's id, and the row of
-    each staged real instance (tile t stages min(limits[t], counts[t]))."""
-    P, R = w.table.shape
+def staged_instances(w: Workload, limits=None):
+    """(staged, real): the instances K1's staging reads (tile t stages
+    min(limits[t], counts[t])) and those of them that are not the pad
+    sentinel."""
+    P = w.table.shape[0]
     n = w.counts.long() if limits is None else torch.minimum(
         limits.long(), w.counts.long())
     g = w.gauss_id.long()
     real = torch.cat([torch.zeros(1, dtype=torch.long, device=g.device),
                       torch.cumsum(((g >= 0) & (g < P)).long(), 0)])
     st = w.starts.long()
-    n_real = int((real[st + n] - real[st]).sum())
-    return int(n.sum()) * 4 + n_real * R * 4
+    return int(n.sum()), int((real[st + n] - real[st]).sum())
+
+
+def staged_bytes(w: Workload, limits=None) -> int:
+    """Bytes K1's staging reads: each staged instance's id, and the row of
+    each staged real instance."""
+    staged, n_real = staged_instances(w, limits)
+    return staged * 4 + n_real * w.table.shape[1] * 4
 
 
 def load_bounds(w: Workload, limits, resident_pairs) -> dict:

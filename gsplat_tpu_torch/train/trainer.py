@@ -243,17 +243,21 @@ class Trainer:
     - Options the port does not have yet raise ``NotImplementedError`` with
       their ROADMAP item: ``data_parallel`` other than 1 and
       ``tile_parallel`` above 1 (Queue 1 item 7), ``use_appearance``
-      (item 6), ``gui_source_path`` (item 8), and the bf16 precisions
-      (item 2).  ``mxu_power``, which the JAX ``Trainer`` hard-codes to
-      True, acts only on the JAX package's Pallas path and is left off.
+      (item 6) and ``gui_source_path`` (item 8).
+
+    As in the JAX ``Trainer``, ``grad_precision`` and ``feat_precision``
+    default to ``"bf16"`` (per-instance gradient rows rounded to bf16
+    before the f32 per-gaussian sum; the features packed as bf16 pairs;
+    ``"f32"`` for bitwise-grade gradient parity runs) and every step is
+    built with ``mxu_power=True``.
     """
 
     def __init__(self, model: GaussianModel, scene, opt, *, bg=None,
                  depth_loss_choice=None, use_seg=False, backend="auto",
                  max_instances=0, seed=0, model_path=None,
-                 gui_source_path=None, grad_precision="f32", cull="none",
+                 gui_source_path=None, grad_precision="bf16", cull="none",
                  data_parallel=1, use_appearance=False, tile_parallel=1,
-                 gt_cache=0, feat_precision="f32",
+                 gt_cache=0, feat_precision="bf16",
                  convert_shs_python=False, compute_cov3d_python=False,
                  debug_from=-1, vs_prune=False, white_background=False):
         if data_parallel not in (0, 1) or tile_parallel > 1:
@@ -270,10 +274,9 @@ class Trainer:
                 "see ROADMAP.md, Queue 1 item 8")
         for name, value in (("grad_precision", grad_precision),
                             ("feat_precision", feat_precision)):
-            if value != "f32":
-                raise NotImplementedError(
-                    f"{name}={value!r}: the bf16 packing is not ported yet; "
-                    "see ROADMAP.md, Queue 1 item 2")
+            if value not in ("f32", "bf16"):
+                raise ValueError(f"{name} must be 'f32' or 'bf16', got "
+                                 f"{value!r}")
         if backend != "auto":
             raise ValueError(f"backend={backend!r}: the port has one "
                              "compositor (backend='auto')")
@@ -322,7 +325,7 @@ class Trainer:
             num_class=model.num_class if use_seg else 0,
             max_instances=mi if mi else self.max_instances, backend=backend,
             grad_precision=grad_precision, cull=cull,
-            feat_precision=feat_precision)
+            feat_precision=feat_precision, mxu_power=True)
         self.ema_loss = 0.0
         self._pending_checks = deque()   # (it, npad, nr, overflow, max_i)
         self._check_interval = 1         # adaptive (see train loop)

@@ -51,9 +51,7 @@ def test_parser_matches_jax():
     j = vars(_jax_parse(argv))
     t = vars(ttrain.build_parser()[0].parse_args(argv))
     assert set(t) == set(j)
-    stated = {"data_device": ("cuda", "tpu"),
-              "grad_precision": ("f32", "bf16"),
-              "feat_precision": ("f32", "bf16")}
+    stated = {"data_device": ("cuda", "tpu")}
     for k in j:
         if k in stated:
             assert (t[k], j[k]) == stated[k], k
@@ -68,9 +66,7 @@ def test_unported_options_raise(scenes, tmp_path):
     for kw, item in ((dict(data_parallel=2), "item 7"),
                      (dict(tile_parallel=2), "item 7"),
                      (dict(use_appearance=True), "item 6"),
-                     (dict(gui_source_path="x"), "item 8"),
-                     (dict(grad_precision="bf16"), "item 2"),
-                     (dict(feat_precision="bf16"), "item 2")):
+                     (dict(gui_source_path="x"), "item 8")):
         with pytest.raises(NotImplementedError, match=item):
             TTrainer(m, ts, port_opt(), **kw)
     base = ["-s", "x", "-m", str(tmp_path / "o"), "--data_device", "cpu"]

@@ -147,7 +147,8 @@ def test_import_is_jax_free():
             "gsplat_tpu_torch.tools.bench_kernels, "
             "gsplat_tpu_torch.tools.bench_dma_overhead, "
             "gsplat_tpu_torch.tools.bench_inkernel_gather, "
-            "gsplat_tpu_torch.tools.bench_vpu_dtype\n"
+            "gsplat_tpu_torch.tools.bench_vpu_dtype, "
+            "gsplat_tpu_torch.tools.sass_diff\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'gsplat_tpu' or m.startswith('gsplat_tpu.')]\n"
             "assert not bad, bad\n")
@@ -237,6 +238,18 @@ def test_kernel_wrappers_validate_inputs():
         composite_backward(table, i32, i32, i32, 1, packed, packed, 4)
     with pytest.raises(ValueError, match="d_packed must be"):
         composite_backward(table, i32, i32, i32, 1, packed, packed[:, :4], 3)
+    # K1's and K2's forms: a packed table is [P, 6 + ceil(Cg/2)], and the
+    # ones channel is a form of the packed table only
+    from gsplat_tpu_torch.ops.composite_cuda import Form
+    with pytest.raises(ValueError, match="packed table"):
+        composite_forward(table, i32, i32, i32, 1, Form(feat_packed=True), 3)
+    with pytest.raises(ValueError, match="Cg >= 1"):
+        composite_forward(table, i32, i32, i32, 1, Form(feat_packed=True))
+    with pytest.raises(ValueError, match="with_ones"):
+        composite_forward(table, i32, i32, i32, 1, Form(with_ones=True))
+    with pytest.raises(ValueError, match="packed table"):
+        composite_backward(table, i32, i32, i32, 1, packed, packed, 4,
+                           Form(mxu_power=True, feat_packed=True))
     # the kernel probes share these checks and add their own
     from gsplat_tpu_torch.tools import probes
     with pytest.raises(ValueError, match="unknown variant"):

@@ -70,9 +70,10 @@ def _dense_workload():
 
 
 def test_quad_power_alpha_matches_jax_mxu_power():
-    """(a) quad_power's alpha and mask against the Pallas kernel's own
-    ``_chunk_alpha(mxu_power=True)`` on a seeded 128-instance chunk of a
-    32x32 tile: masks equal, alpha within 2e-5.  JAX's matmul and the
+    """(a) the quad power form's alpha and mask (``pair_terms`` with the
+    tile basis, the path of K1's and K2's plain versions) against the
+    Pallas kernel's own ``_chunk_alpha(mxu_power=True)`` on a seeded
+    128-instance chunk of a 32x32 tile: masks equal, alpha within 2e-5.  JAX's matmul and the
     port's six products sum the same terms, some of them hundreds, in
     another order: on this chunk they differ by 6.7e-6, and JAX's own MXU
     form differs from its VPU form by 8.5e-6."""
@@ -94,10 +95,13 @@ def test_quad_power_alpha_matches_jax_mxu_power():
                                   jnp.asarray(valid)[:, None],
                                   mxu_power=True, origin=origin)
     tiles = torch.tensor([t])
-    ox_t, oy_t, qx, qy = probes._tile_basis(tiles, grid_x)
-    alpha, mask = probes.quad_power_alpha(
-        torch.from_numpy(buf.T.copy())[None], torch.from_numpy(valid)[None],
-        ox_t, oy_t, qx, qy)
+    px_t, py_t = tcomp.pixel_coords(tiles, grid_x)
+    _, _, power, raw = tcomp.pair_terms(
+        torch.from_numpy(buf.T.copy())[None], px_t, py_t,
+        quad=tcomp.tile_basis(tiles, grid_x))
+    alpha = torch.clamp(raw, max=tcomp.ALPHA_MAX)
+    mask = (torch.from_numpy(valid)[None, :, None]
+            & (power <= tcomp.QUAD_POWER_CUT) & (alpha >= tcomp.ALPHA_MIN))
     a_t = torch.where(mask, alpha, 0.0)[0].numpy()
     np.testing.assert_array_equal(mask[0].numpy(), np.asarray(m_j))
     assert 1000 < int(mask.sum()) < K * tcomp.TILE_PIX

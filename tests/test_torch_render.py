@@ -122,11 +122,19 @@ def test_forward_only_and_unported_options_raise():
     (g,) = torch.autograd.grad(out["render"].sum() + out["depth"].sum(), means)
     assert g.shape == (16, 3) and torch.isfinite(g).all()
     assert float(g.abs().max()) > 0.0
+    # the numeric options render (tests/test_torch_composite_forms.py holds
+    # them to the JAX package); an unknown precision is refused
     for field, value in (("feat_precision", "bf16"),
                          ("grad_precision", "bf16"), ("mxu_power", True)):
+        cfg_f = RasterizeConfig(width=32, height=32, max_instances=1 << 12,
+                                **{field: value})
+        out_f = _rasterize_cpu(cfg_f)
+        assert out_f["render"].shape == (3, 32, 32)
+        assert torch.isfinite(out_f["render"]).all()
+    for field in ("feat_precision", "grad_precision"):
         bad = RasterizeConfig(width=32, height=32, max_instances=1 << 12,
-                              **{field: value})
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+                              **{field: "fp16"})
+        with pytest.raises(ValueError, match=field):
             _rasterize_cpu(bad)
     for backend in ("cuda", "pallas"):
         bad = RasterizeConfig(width=32, height=32, max_instances=1 << 12,

@@ -82,9 +82,17 @@ def test_gather_rows_grad_matches_jax():
 def test_unported_options_and_bad_inputs_raise():
     table = torch.zeros((4, 3))
     idx = torch.zeros(8, dtype=torch.int32)
+    # the bf16 pair options reduce (tests/test_torch_precision.py holds them
+    # to the JAX package); an unknown precision or a tail wider than the
+    # table is refused
     for kw in (dict(grad_precision="bf16"), dict(packed_tail=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tseg.gather_rows(table, idx, **kw)
+        t = table.clone().requires_grad_(True)
+        (g,) = torch.autograd.grad(tseg.gather_rows(t, idx, **kw).sum(), t)
+        assert g.shape == (4, 3) and torch.isfinite(g).all()
+    with pytest.raises(ValueError, match="grad_precision"):
+        tseg.gather_rows(table, idx, grad_precision="fp16")
+    with pytest.raises(ValueError, match="packed_tail"):
+        tseg.gather_rows(table, idx, packed_tail=4)
     vals = torch.zeros((8, 3))
     with pytest.raises(ValueError, match="int32"):
         tseg.segment_sum_sorted(vals, idx.long(), 4)

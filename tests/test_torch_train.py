@@ -13,10 +13,8 @@ from gsplat_tpu.models import adam as jadam
 from gsplat_tpu.models import densify as jdensify
 from gsplat_tpu.models import gaussians as jgauss
 from gsplat_tpu.ops.knn import dist2_knn as jknn
-from gsplat_tpu.ops.rasterize import RasterizeConfig as JCfg
 from gsplat_tpu.train import losses as jL
 from gsplat_tpu.train import schedules as jsched
-from gsplat_tpu.train import trainer as jtrainer
 from gsplat_tpu_torch import config as tconfig
 from gsplat_tpu_torch.models import adam as tadam
 from gsplat_tpu_torch.models import densify as tdensify
@@ -27,7 +25,8 @@ from gsplat_tpu_torch.train import losses as tL
 from gsplat_tpu_torch.train import schedules as tsched
 from gsplat_tpu_torch.train import trainer as ttrainer
 
-from torch_helpers import make_camera, model_state_np, tree_np
+from torch_helpers import (make_camera, model_state_np, step_from_warm_state,
+                           tree_np)
 
 PFIELDS = tgauss.GaussianParams._fields
 
@@ -333,68 +332,11 @@ W, H, N_LIVE, CAP = 64, 32, 150, 192
 BG = np.array([0.1, 0.3, 0.2], np.float32)
 
 
-def _batch_np(rng):
-    return dict(
-        image=rng.uniform(size=(3, H, W)).astype(np.float32),
-        depth=rng.uniform(0.2, 2.0, (1, H, W)).astype(np.float32),
-        seg=rng.integers(0, 2, (H, W)).astype(np.int32))
-
-
 @pytest.fixture(scope="module")
 def shared_step():
-    """One JAX train step (compiled once) and the port's step, both from one
+    """One JAX train step (compiled once) and the port's, both from one
     state with dead rows and warm Adam moments."""
-    rng = np.random.default_rng(460)
-    p0 = model_state_np(rng, n=N_LIVE, capacity=CAP)
-    alive = p0.pop("alive")
-    b = _batch_np(rng)
-    cam = make_camera(W, H)
-    cam.image = b["image"]
-    jopt, topt = jconfig.OptimizationParams(), tconfig.OptimizationParams()
-    lrs = tsched.make_lr_fn(topt, 1.0)(100)
-    jlrs = {k: jnp.float32(v) for k, v in lrs.items()}
-    jcfg = JCfg(width=W, height=H, num_class=2, max_instances=1 << 13,
-                backend="pallas")
-    tcfg = RasterizeConfig(width=W, height=H, num_class=2,
-                           max_instances=1 << 13)
-    jstep = jtrainer.make_train_step(jcfg, jopt, 3, "L1_loss", True,
-                                     jnp.asarray(BG))
-    tstep = ttrainer.make_train_step(tcfg, topt, 3, "L1_loss", True, BG,
-                                     device="cpu")
-    jbatch = jtrainer.camera_batch(cam, gt_depth=b["depth"], gt_seg=b["seg"])
-    tbatch = ttrainer.camera_batch(cam, gt_depth=b["depth"], gt_seg=b["seg"],
-                                   device="cpu")
-    key = jax.random.PRNGKey(0)
-
-    # a first JAX step from a cold state gives the gradients' scale; the
-    # shared state takes its parameters and first moments, a second moment
-    # at the square of each group's largest gradient (a first Adam step
-    # moves every entry by lr * sign(g), which no tolerance could hold
-    # across two packages) and a step count of 100
-    jp0 = _jparams(p0)
-    jaux0 = jgauss.empty_aux(CAP)._replace(alive=jnp.asarray(alive))
-    jp1, jo1, ja1, _ = jstep(jp0, jadam.init(jp0), jaux0, jbatch, jlrs, key)
-    params = {k: np.asarray(v) for k, v in tree_np(jp1).items()}
-    mu = tree_np(jo1.mu)
-    gmax = {k: float(np.abs(mu[k]).max()) / 0.1 for k in PFIELDS}
-    live = alive.reshape((-1,) + (1,) * 2)
-    nu = {k: np.broadcast_to(
-        np.float32(gmax[k] ** 2) * live.reshape((-1,) + (1,) * (mu[k].ndim - 1)),
-        mu[k].shape).astype(np.float32) for k in PFIELDS}
-    aux = tree_np(ja1)
-
-    jstate = jadam.AdamState(jnp.int32(100), _jparams(mu), _jparams(nu))
-    jout = jstep(_jparams(params), jstate,
-                 jgauss.GaussianAux(**{k: jnp.asarray(v)
-                                       for k, v in aux.items()}),
-                 jbatch, jlrs, key)
-    tin = (tgauss.params_from_numpy(dict(params, alive=alive), device="cpu",
-                                    num_class=2).params,
-           tgauss.adam_state_from_numpy(100, mu, nu, device="cpu"),
-           tgauss.aux_from_numpy(aux, device="cpu"))
-    tout = tstep(*tin, tbatch, lrs)
-    return dict(jout=jout, tout=tout, tin=tin, tbatch=tbatch, lrs=lrs,
-                gmax=gmax, alive=alive, topt=topt, mu_in=mu)
+    return step_from_warm_state(460, W, H, N_LIVE, CAP, BG)
 
 
 def test_train_step_matches_jax(shared_step):

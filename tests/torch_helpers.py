@@ -164,6 +164,84 @@ def tree_np(tree):
             for k, v in tree._asdict().items()}
 
 
+
+def step_from_warm_state(seed, width=64, height=32, n_live=150, capacity=192,
+                         bg=(0.1, 0.3, 0.2), **cfg_kw):
+    """One JAX ``make_train_step`` step (the Pallas path, compiled once)
+    and the port's, both from one state with dead rows and warm Adam
+    moments, at num_class = 2 with the depth and segment losses;
+    ``cfg_kw`` goes to both rasterizer configs.
+
+    A first JAX step from a cold state gives the gradients' scale; the
+    shared state takes its parameters and first moments, a second moment
+    at the square of each group's largest gradient (a first Adam step
+    moves every entry by lr * sign(g), which no tolerance could hold
+    across two packages) and a step count of 100."""
+    import jax
+    import jax.numpy as jnp
+    from gsplat_tpu import config as jconfig
+    from gsplat_tpu.models import adam as jadam
+    from gsplat_tpu.models import gaussians as jgauss
+    from gsplat_tpu.ops.rasterize import RasterizeConfig as JCfg
+    from gsplat_tpu.train import trainer as jtrainer
+    from gsplat_tpu_torch import config as tconfig
+    from gsplat_tpu_torch.models import gaussians as tgauss
+    from gsplat_tpu_torch.ops.rasterize import RasterizeConfig
+    from gsplat_tpu_torch.train import schedules as tsched
+    from gsplat_tpu_torch.train import trainer as ttrainer
+
+    fields = tgauss.GaussianParams._fields
+
+    def jparams(d):
+        return jgauss.GaussianParams(**{k: jnp.asarray(d[k]) for k in fields})
+
+    bg = np.asarray(bg, np.float32)
+    rng = np.random.default_rng(seed)
+    p0 = model_state_np(rng, n=n_live, capacity=capacity)
+    alive = p0.pop("alive")
+    image = rng.uniform(size=(3, height, width)).astype(np.float32)
+    depth = rng.uniform(0.2, 2.0, (1, height, width)).astype(np.float32)
+    seg = rng.integers(0, 2, (height, width)).astype(np.int32)
+    cam = make_camera(width, height)
+    cam.image = image
+    jopt, topt = jconfig.OptimizationParams(), tconfig.OptimizationParams()
+    lrs = tsched.make_lr_fn(topt, 1.0)(100)
+    jlrs = {k: jnp.float32(v) for k, v in lrs.items()}
+    jcfg = JCfg(width=width, height=height, num_class=2,
+                max_instances=1 << 13, backend="pallas", **cfg_kw)
+    tcfg = RasterizeConfig(width=width, height=height, num_class=2,
+                           max_instances=1 << 13, **cfg_kw)
+    jstep = jtrainer.make_train_step(jcfg, jopt, 3, "L1_loss", True,
+                                     jnp.asarray(bg))
+    tstep = ttrainer.make_train_step(tcfg, topt, 3, "L1_loss", True, bg,
+                                     device="cpu")
+    jbatch = jtrainer.camera_batch(cam, gt_depth=depth, gt_seg=seg)
+    tbatch = ttrainer.camera_batch(cam, gt_depth=depth, gt_seg=seg,
+                                   device="cpu")
+    key = jax.random.PRNGKey(0)
+    jp0 = jparams(p0)
+    jaux0 = jgauss.empty_aux(capacity)._replace(alive=jnp.asarray(alive))
+    jp1, jo1, ja1, _ = jstep(jp0, jadam.init(jp0), jaux0, jbatch, jlrs, key)
+    params = tree_np(jp1)
+    mu = tree_np(jo1.mu)
+    gmax = {k: float(np.abs(mu[k]).max()) / 0.1 for k in fields}
+    nu = {k: np.broadcast_to(np.float32(gmax[k] ** 2) * alive.reshape(
+        (-1,) + (1,) * (mu[k].ndim - 1)), mu[k].shape).astype(np.float32)
+        for k in fields}
+    aux = tree_np(ja1)
+    jout = jstep(jparams(params),
+                 jadam.AdamState(jnp.int32(100), jparams(mu), jparams(nu)),
+                 jgauss.GaussianAux(**{k: jnp.asarray(v)
+                                       for k, v in aux.items()}),
+                 jbatch, jlrs, key)
+    tin = (tgauss.params_from_numpy(dict(params, alive=alive), device="cpu",
+                                    num_class=2).params,
+           tgauss.adam_state_from_numpy(100, mu, nu, device="cpu"),
+           tgauss.aux_from_numpy(aux, device="cpu"))
+    tout = tstep(*tin, tbatch, lrs)
+    return dict(jout=jout, tout=tout, tin=tin, tbatch=tbatch, lrs=lrs,
+                gmax=gmax, alive=alive, topt=topt, mu_in=mu)
+
 # --- the synthetic scene of the command-line tests -----------------------------
 
 SCENE_CLASSES = 2
