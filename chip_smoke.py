@@ -79,7 +79,14 @@ Phases (any failure exits non-zero; nothing is caught):
    default, f32: ms/step, device busy, idle share), one counted step in
    each single form, and bench.py's serving configuration
    (``render_only=True, feat_precision="bf16"``) at 1080p: its frame
-   median and device busy time.
+   median and device busy time;
+12. (g) K2 at 16x16 tiles: the tile shape is read at import, so a fresh
+   interpreter (this script with ``--tile16`` and ``GSPLAT_TILE_X/Y=16``,
+   started after the build and held until this phase) renders a seeded scene of 4,000 gaussians at 256x256 and holds K2 in
+   each of its four forms against its plain version by the rule of (f),
+   rows finite, pad slots zero, two launches bit-equal; its time is
+   printed.  K2's CTAs per SM at C = 3, 5, 7 and a runtime C are printed
+   beside ptxas's registers.
 
 The last three lines are the kernel table as one JSON object (K1 to K4,
 K3x, P1 to P4 with every variant, and K1's and K2's forms), the card line,
@@ -87,6 +94,7 @@ and
 ``{"ok": true, "device": {...}}``.  Without a usable card the
 script exits 2 and prints no result.
 """
+import atexit
 import ctypes
 import json
 import math
@@ -1202,51 +1210,11 @@ FORM_CONFIGS = {"quad": dict(mxu_power=True),
                 "packed": dict(grad_precision="bf16", feat_precision="bf16")}
 
 
-def form_of(comp, name):
-    """The form ``name`` at C = 7: packed forms with the ones channel."""
-    return comp.Form(mxu_power="quad" in name, feat_packed="packed" in name,
-                     with_ones="packed" in name)
-
-
-def form_table(torch, seg, table, Cg, form):
-    """The asset's [P, 6+C] table in ``form``'s layout: packed, its Cg
-    features as bf16 pairs after the geometry (the ones channel is made in
-    the kernel)."""
-    if not form.feat_packed:
-        return table
-    return torch.cat([table[:, :6], seg.pack_bf16_pairs(table[:, 6:6 + Cg])],
-                     dim=1).contiguous()
-
-
-def compare_form_rows(torch, seg, got, want, Cg, packed):
-    """K2's rule on a form's rows: each column within 1e-3 of its largest
-    |value|; packed feature words compared after unpacking, with one bf16
-    ulp of the value beyond that (the RNE of two f32 sums taken in another
-    order can differ by one step).  Returns (max |diff|, the worst
-    column's diff over its scale, values outside)."""
-    if packed:
-        got = torch.cat([got[:, :6], seg.unpack_bf16_pairs(got[:, 6:], Cg)],
-                        dim=1)
-        want = torch.cat([want[:, :6], seg.unpack_bf16_pairs(want[:, 6:],
-                                                               Cg)], dim=1)
-    d = (got - want).abs()
-    scale = want.abs().amax(dim=0)
-    tol = 1e-3 * scale[None].expand_as(d)
-    if packed:
-        mag = torch.maximum(got.abs(), want.abs())[:, 6:]
-        ulp = torch.exp2(torch.floor(torch.log2(mag.clamp_min(1e-30))) - 7)
-        tol = torch.cat([tol[:, :6], tol[:, 6:] + ulp], dim=1)
-    bad = int((d > tol).sum())
-    worst = float((d.amax(dim=0) / scale.clamp_min(1e-30)).max())
-    return float(d.max()), worst, bad
-
-
 def phase_form_kernels(torch, card, w):
     """Each form of K1 and K2 against its plain version at the asset (K1's
     inputs in the form's table layout, K2 on that form's K1 output and the
     asset's seeded cotangent); their times, plain times and bounds."""
     from gsplat_tpu_torch.ops import composite_cuda as comp
-    from gsplat_tpu_torch.ops import segment_reduce as seg
     from gsplat_tpu_torch.tools import workload as wl
     t0 = time.perf_counter()
     C, Cg = w.C, w.Cg
@@ -1254,8 +1222,8 @@ def phase_form_kernels(torch, card, w):
     T = starts.shape[0]
     rows = {}
     for name in FORMS:
-        form = form_of(comp, name)
-        table = form_table(torch, seg, w.table, Cg, form)
+        form = wl.form_of(name)
+        table = wl.form_table(w.table, Cg, form)
         k1 = (table, gid, starts, counts, gx, form, Cg)
         out_k = comp.composite_forward(*k1)
         plain_ms, out_p = single_ms(torch, lambda: comp.composite_forward_plain(
@@ -1294,8 +1262,8 @@ def phase_form_kernels(torch, card, w):
               f"K2 {name}: non-finite gradient row")
         check(float(d_k[gid >= table.shape[0]].abs().max()) == 0.0,
               f"K2 {name}: pad slots carry gradient")
-        err2, worst, bad = compare_form_rows(torch, seg, d_k, d_p, Cg,
-                                             form.feat_packed)
+        err2, worst, bad = wl.compare_form_rows(d_k, d_p, Cg,
+                                                form.feat_packed)
         check(bad == 0, f"K2 {name}: {bad} values outside tolerance (worst "
               f"column {worst:.3g} of its largest)")
         check(torch.equal(comp.composite_backward(*k2), d_k),
@@ -1480,6 +1448,138 @@ def form_rows(rows, launches):
     return out
 
 
+# (g) K2 at 16x16 tiles, in a fresh interpreter
+TILE16_GAUSSIANS, TILE16_SIZE, TILE16_TIMEOUT = 4000, 256, 120
+
+
+def start_tile16():
+    """This script with ``--tile16`` under 16x16 tiles, started once the
+    kernels are built: it imports and reaches the card while the phases
+    before (g) run, then waits for a line on its stdin, so that its kernels
+    run alone (``phase_tile16``).  It is killed if this process exits
+    first; on its own it exits when its stdin closes."""
+    env = dict(os.environ, GSPLAT_TILE_X="16", GSPLAT_TILE_Y="16")
+    child = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--tile16"], env=env,
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    atexit.register(lambda: child.poll() is None and child.kill())
+    return child
+
+
+def phase_tile16(card, child):
+    """Lets the 16x16 child run and checks it said so."""
+    t0 = time.perf_counter()
+    out, err = child.communicate("go\n", timeout=TILE16_TIMEOUT)
+    sys.stdout.write(out)
+    sys.stderr.write(err[-4000:])
+    check(child.returncode == 0 and "tile16 (g): ok" in out,
+          f"the 16x16 phase failed (exit {child.returncode})")
+    print(f"tile16 (g) [{card}]: phase {time.perf_counter() - t0:.1f} s "
+          "(the child's start overlapped the phases before)")
+
+
+def tile16_main():
+    """(g) K2 in each form at 16x16 tiles against its plain version, on a
+    seeded 256x256 scene: C = 7 channels as the asset's (rgb, depth, two
+    segments, ones; Cg = 6), a cotangent from a generator seeded 3."""
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from gsplat_tpu_torch.core import transforms as T
+    from gsplat_tpu_torch.core.cameras import Camera
+    from gsplat_tpu_torch.models.gaussians import params_from_numpy
+    from gsplat_tpu_torch import _kernels
+    from gsplat_tpu_torch.ops import binning as bin_lib
+    from gsplat_tpu_torch.ops import composite_cuda as comp
+    from gsplat_tpu_torch.ops import preprocess as pre_lib
+    from gsplat_tpu_torch.tools import workload as wl
+    check(pre_lib.TILE_X == pre_lib.TILE_Y == 16 and comp.TILE_PIX == 256,
+          "tile16: GSPLAT_TILE_X/Y=16 did not reach the port")
+    dev = torch.device("cuda")
+    torch.zeros(1, device=dev)
+    _kernels.lib()
+    if sys.stdin.readline().strip() != "go":
+        return 3
+    t0 = time.perf_counter()
+    n, S = TILE16_GAUSSIANS, TILE16_SIZE
+    rng = np.random.default_rng(16)
+    model = params_from_numpy(dict(
+        xyz=rng.standard_normal((n, 3)) * 1.2,
+        features_dc=rng.standard_normal((n, 1, 3)) * 0.8,
+        features_rest=rng.standard_normal((n, 15, 3)) * 0.2,
+        scaling=rng.standard_normal((n, 3)) * 0.5 - 2.5,
+        rotation=rng.standard_normal((n, 4)),
+        opacity=rng.standard_normal((n, 1)) * 1.5,
+        segment=rng.standard_normal((n, NUM_CLASS))), device=dev)
+    cam = Camera(colmap_id=0, R=np.eye(3), T=np.array([0.0, 0.0, 4.0]),
+                 FoVx=math.radians(60.0), FoVy=math.radians(60.0),
+                 image=np.zeros((3, S, S), np.float32), image_name="t16",
+                 uid=0)
+    p = model.params
+    pre = pre_lib.preprocess(
+        p.xyz, T.scaling_activation(p.scaling), p.rotation,
+        T.opacity_activation(p.opacity[:, 0]), model.get_features, 3,
+        *[torch.as_tensor(m, device=dev) for m in (
+            cam.world_view_transform, cam.full_proj_transform,
+            cam.camera_center)], cam.tan_fovx, cam.tan_fovy, S, S)
+    gx = gy = S // 16
+    bins = bin_lib.bin_gaussians(pre, gx, gy, 1 << 19)
+    check(not bool(bins.overflow), "tile16: binning overflowed")
+    feats = torch.cat([pre.rgb, pre.depths[:, None],
+                       T.segment_activation(p.segment),
+                       torch.ones_like(pre.depths[:, None])], dim=1)
+    table = torch.cat([pre.means2d, pre.conic, pre.opacity[:, None], feats],
+                      dim=1).contiguous()
+    C, Cg = feats.shape[1], feats.shape[1] - 1
+    starts, counts = comp.tile_ranges(bins)
+    gid = bins.gauss_id.contiguous()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    d_packed = torch.randn((gx * gy, C + 2, comp.TILE_PIX), generator=gen,
+                           device=dev)
+    lines = []
+    for name in ("f32", *FORMS):
+        form = wl.form_of(name)
+        tab = wl.form_table(table, Cg, form)
+        out = comp.composite_forward(tab, gid, starts, counts, gx, form, Cg)
+        k2 = (tab, gid, starts, counts, gx, out, d_packed, Cg, form)
+        d_k = comp.composite_backward(*k2)
+        d_p = comp.composite_backward_plain(*k2)
+        check(bool(torch.isfinite(d_k[:, :6]).all()),
+              f"tile16 K2 {name}: non-finite gradient row")
+        check(float(d_k[gid >= tab.shape[0]].abs().max()) == 0.0,
+              f"tile16 K2 {name}: pad slots carry gradient")
+        err, worst, bad = wl.compare_form_rows(d_k, d_p, Cg,
+                                               form.feat_packed)
+        check(bad == 0, f"tile16 K2 {name}: {bad} values outside tolerance "
+              f"(worst column {worst:.3g} of its largest)")
+        check(torch.equal(comp.composite_backward(*k2), d_k),
+              f"tile16 K2 {name}: two launches gave different bits")
+        lines.append(f"{name} max |diff| {err:.3g} (worst column "
+                     f"{worst:.2e} of its largest), rows written "
+                     f"{int((d_k != 0).any(dim=1).sum())}")
+    print(f"tile16 (g): {n} gaussians at {S}x{S}, {gx * gy} tiles of 16x16, "
+          f"{int(bins.num_rendered)} instances; K2 against its plain version: "
+          + "; ".join(lines))
+    print(f"tile16 (g): ok in {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
+def k2_occupancy(comp):
+    """K2's CTAs per SM at this tile shape, f32 at C = 3, 5, 7 and 9 (its
+    runtime-C kernel) and the packed quad form at C = 3, 5, 7 and 4 (its
+    runtime-C kernel), Cg = C - 1."""
+    from gsplat_tpu_torch.tools import workload as wl
+    quad = wl.form_of("packed_quad")
+    return {f"{name} C={C}": comp.backward_occupancy(C, C - 1, form)
+            for name, form, cs in (("f32", comp.F32, (3, 5, 7, 9)),
+                                   ("packed_quad", quad, (3, 5, 7, 4)))
+            for C in cs}
+
+
 def main():
     import numpy as np
     import torch
@@ -1521,6 +1621,8 @@ def main():
         if ("registers" in line or "spill" in line or "Compiling" in line
                 or line.startswith("==")):
             print("  ptxas:", line.strip())
+    print(f"K2 CTAs per SM: {json.dumps(k2_occupancy(comp))}")
+    tile16 = start_tile16()
 
     # ---- 2. scene, binning and K1's inputs (tools.workload) ----------------
     w = wl.asset_workload(dev, pair_counts=False)
@@ -1749,6 +1851,9 @@ def main():
     form_kernel_rows = phase_form_kernels(torch, card, w)
     form_launches = phase_form_paths(torch, np, card, w)
 
+    # ---- 12. (g) K2 at 16x16 tiles ------------------------------------------
+    phase_tile16(card, tile16)
+
     # bounds: each input read once, each output written once
     k3_bytes = 3 * 4 * S + 2 * 4 * cap
     k3_ops = cap * (4 * math.ceil(math.log2(S + 1)) + 12)
@@ -1805,4 +1910,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(tile16_main() if sys.argv[1:] == ["--tile16"] else main())

@@ -81,6 +81,10 @@ SIGNATURES = {
     # form, then gsplat_composite_backward's arguments
     "gsplat_composite_backward_form": (_I, _VP, _I, _I, _I, _VP, _VP, _VP,
                                        _I, _I, _I, _I, _VP, _VP, _VP, _VP),
+    # C, Cg, tile_x, tile_y: CTAs per SM of the f32 form's kernel
+    "gsplat_composite_backward_occupancy": (_I, _I, _I, _I),
+    # form, C, Cg, tile_x, tile_y: the same for another form
+    "gsplat_composite_backward_form_occupancy": (_I, _I, _I, _I, _I),
     # vals, sids, perm (or null), I, R, num_segments, out, stream
     "gsplat_segment_sum": (_VP, _VP, _VP, _I, _I, _I, _VP, _VP),
     # variant, then gsplat_composite_forward's arguments

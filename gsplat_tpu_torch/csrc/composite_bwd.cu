@@ -1,7 +1,7 @@
 // K2 — backward alpha composite: the C entry, which launches the kernel of
 // composite_bwd.cuh (its comments say what it computes, its design and its
 // bound) in its production form, kBwdBase, compiled for C = 1..8 and for a
-// runtime C.
+// runtime C; and the CTAs an SM holds of each.
 #include "composite_bwd.cuh"
 
 extern "C" int gsplat_composite_backward(
@@ -37,4 +37,24 @@ extern "C" int gsplat_composite_backward(
     default: GSPLAT_K2_LAUNCH(0);
   }
 #undef GSPLAT_K2_LAUNCH
+}
+
+// CTAs of gsplat_composite_backward's kernel an SM holds at once for C, Cg
+// and the tile shape (0 on an error).
+extern "C" int gsplat_composite_backward_occupancy(int C, int Cg, int tile_x,
+                                                   int tile_y) {
+#define GSPLAT_K2_OCC(CT) \
+  return backward_occupancy<CT, kBwdBase>(C, Cg, tile_x, tile_y)
+  switch (C) {
+    case 1: GSPLAT_K2_OCC(1);
+    case 2: GSPLAT_K2_OCC(2);
+    case 3: GSPLAT_K2_OCC(3);
+    case 4: GSPLAT_K2_OCC(4);
+    case 5: GSPLAT_K2_OCC(5);
+    case 6: GSPLAT_K2_OCC(6);
+    case 7: GSPLAT_K2_OCC(7);
+    case 8: GSPLAT_K2_OCC(8);
+    default: GSPLAT_K2_OCC(0);
+  }
+#undef GSPLAT_K2_OCC
 }

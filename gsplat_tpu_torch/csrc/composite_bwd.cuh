@@ -24,7 +24,7 @@
 // from the forward's own accumulation, so there is no backward walk and no
 // division to rebuild T:
 //     d alpha_i = T_i g_i - (S_i + T_final dT_final) / (1 - alpha_i).
-// The division is taken only on composited pairs, where alpha <= 0.99.  The
+// alpha <= 0.99 on every pair, so 1 - alpha >= 0.01.  The
 // 0.99 cap is a true min: where opacity * G >= 0.99 the pair passes no
 // gradient to power or opacity (the JAX package's deliberate deviation from
 // backward.cu).  With dpow = raw * d alpha the per-instance sums over the
@@ -36,32 +36,57 @@
 // TPU kernel takes the moments from one matmul over a pixel basis; the direct
 // sums are the same numbers.
 //
-// Design.  One thread per tile pixel, as K1.  Batches of kBwdBatch instances
-// are staged in shared memory straight from the [P, 6+C] table through
-// gauss_id (the fused gather).  The walk stops at the tile's last contributor (the
-// maximum n_contrib over the CTA), and each warp stops at its own.  For every
-// instance a warp first votes: if none of its 32 pixels composites it, the
-// warp adds nothing and shuffles nothing.  Otherwise the 6+Cg values are
-// summed across the warp with xor shuffles, eight values at a time in a
-// tree that halves the values in flight at each step (18 shuffles for 12
-// values, not 60), and left in the warp's own slot of shared memory, and a
-// bit is set in the instance's warp mask.  After the batch one thread per
-// output word adds the slots of the warps whose bit is set, in warp order,
-// and writes the row.  Each instance belongs to one tile,
-// so rows are disjoint and each is written by one CTA: no atomics on global
-// memory, and the same bits from run to run.  Rows the walk does not reach
-// (past the tile's last contributor, alignment pads, the unused tail) are
-// left as the caller's zeros.  The TPU kernel's DMA prefetch, slot parity
-// and log-step scans are not carried over.
+// Design.  A thread owns four consecutive pixels of one tile row, and a
+// warp a 16x8 block of them where the tile divides into such blocks (32x32:
+// 256 threads in 8 warps; 16x16: 64 in 2), else 128 pixels in row-major
+// order (a last warp that reaches past the tile has pixels that take part in
+// nothing).  Each thread keeps its pixels' state in registers (T, the
+// prefix, TOT, T_final dT_final, n_contrib, and d_out for C <= 8).  Batches
+// of up to kBwdBatch instances are staged in shared memory straight from the
+// [P, 6+C] table through gauss_id (the fused gather), with the quad form's
+// coefficients and, per instance, the warps whose box of pixels the
+// gaussian may reach: a warp is left out only where the least quadratic
+// form of its box keeps the power below alpha's 1/255 threshold by a margin
+// far above the rounding of K1's power (warps_that_may_composite), so every
+// pair it skips is one K1 skips.  The walk stops at the tile's last
+// contributor (the maximum n_contrib over the CTA), and each warp stops at
+// its own.  For every instance left to it a thread recomputes power, alpha
+// and the skip tests for its four pixels, and the warp votes once: if none
+// of its 128 pixels composites the instance, it goes on.  Otherwise each
+// thread adds its four pixels' 6+Cg terms in registers, straight-line, each
+// pixel's terms selected to zero where it does not composite, so that the
+// four chains run side by side (a branch per pixel would run them one after
+// another, and some lane takes nearly every one), then the warp sums them
+// with xor shuffles, eight values at a time in a tree that halves the
+// values in flight at each step (18 shuffles for 12 values), leaves them in
+// its own slot of shared memory (a value's slots kBwdBatch + 1 floats
+// apart, so that the lanes writing one instance hit distinct banks) and
+// sets the instance's bit in its mask.
+// After the batch one thread per (instance, value) adds the slots of the
+// warps whose bit is set, in warp order, and one thread per output word
+// writes the row.  So the vote, the trees and the slot writes are paid once
+// per 128 pixels, the epilogue adds at most 8 slots, four barriers serve 128
+// instances, and a 32x32 tile's 256 threads with their ~60 KB of shared
+// memory let two tiles share an SM.  Every sum is taken in a fixed order (a
+// thread's pixels in order, a fixed tree, the warps in order): the same
+// bits from run to run.  Each instance belongs to one tile, so rows are
+// disjoint and each is written by one CTA: no atomics at all.  Rows the walk
+// does not reach (past the tile's last contributor, alignment pads, the
+// unused tail) are left as the caller's zeros.  d alpha's division is
+// __fdividef (its divisor 1 - alpha lies in [0.01, 1]); the skip decisions
+// take no division.  The TPU kernel's DMA prefetch, slot parity and log-step
+// scans are not carried over.
 //
 // Bound on the H100: operations.  A tested pair costs what it costs K1 (17);
 // a composited pair 2C for g, about 20 for d alpha, dpow and the six moment
 // terms, Cg for the feature terms, and its share of the reductions.  Bytes
 // (table rows, ids, the two packed arrays, the rows written) are far below
-// that.  The cross-thread reduction is the cost the design is about: most
-// (pixel, instance) pairs are skipped, so the warp vote removes most
-// shuffles.  C <= 8 keeps d_out in registers; larger C re-reads it from
-// global memory (correct, slow).
+// that.  What the design is about is the cost per (warp, instance): the
+// cull and the vote skip the warps that take no part, and owning four
+// pixels a thread cuts the reductions of those that do by four.  C <= 8
+// keeps d_out in registers; larger C re-reads it from global memory
+// (correct, slow), and a C so large that kBwdBatch instances' slots do not
+// fit the SM's shared memory halves the batch until they do.
 //
 // The forms (template parameter F, composite_common.cuh's Form bits), K1's:
 //   kFormQuad    the power from K1's quad-form coefficients, computed once
@@ -95,8 +120,9 @@
 //                  since composite_pallas.py:160-163) takes
 //                  exp2f(power log2 e): the tool's exp2 knob, turned round.
 //   no_alpha       no Gaussian: raw = opacity (no power, no exp2, no
-//                  power > 0 test), so every pair up to n_contrib whose
-//                  opacity passes the 1/255 test takes part.  It composites
+//                  power > 0 test, no warp left out by the cull), so
+//                  every pair up to n_contrib whose opacity passes the
+//                  1/255 test takes part.  It composites
 //                  more pairs than base: base - no_alpha is a lower bound on
 //                  what the alpha recompute costs.
 //   no_moments     the five moment products are not formed: each warp sums
@@ -115,9 +141,21 @@
 
 namespace {
 
-constexpr int kMaxWarps = kMaxThreads / 32;
-constexpr int kBwdBatch = 64;      // instances staged per round
+constexpr int kPix = 4;            // pixels a thread owns
+constexpr int kMaxBwdThreads = kMaxThreads / kPix;
+constexpr int kMaxBwdWarps = kMaxBwdThreads / 32;
+constexpr int kBwdBatch = 128;     // instances staged per round, at most
+constexpr int kMaskWords = kBwdBatch / 32;
+constexpr size_t kMaxSmem = 232448;  // the H100's opt-in shared memory a block
 constexpr unsigned kFull = 0xffffffffu;
+// A warp's pixels: a kBlockX x kBlockY block (its lanes four to a row, each
+// on kPix consecutive pixels) where the tile divides into such blocks.
+constexpr int kBlockX = 4 * kPix;
+constexpr int kBlockY = 32 / 4;
+
+__device__ __forceinline__ bool warp_blocks(int tile_x, int tile_y) {
+  return tile_x % kBlockX == 0 && tile_y % kBlockY == 0;
+}
 
 // In the order of probes.BWD_VARIANTS (P2's variant index).
 enum BwdVariant {
@@ -167,39 +205,111 @@ __device__ __forceinline__ float warp_sum8(const float (&v)[8], int lane) {
   return c;
 }
 
+// The least of q(x, y) = a x^2 + 2 b x y + c y^2 (positive definite) over the
+// box [xl, xh] x [yl, yh]: 0 where the box holds the origin, else the least
+// of the four edges' minima (q is convex).
+__device__ __forceinline__ float quad_min_box(float a, float b, float c,
+                                              float xl, float xh, float yl,
+                                              float yh) {
+  if (xl <= 0.f && xh >= 0.f && yl <= 0.f && yh >= 0.f) return 0.f;
+  float m = INFINITY;
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const float y = e ? yh : yl;
+    const float x = fminf(fmaxf(-b * y / a, xl), xh);
+    m = fminf(m, a * x * x + 2.f * b * x * y + c * y * y);
+    const float x2 = e ? xh : xl;
+    const float y2 = fminf(fmaxf(-b * x2 / c, yl), yh);
+    m = fminf(m, a * x2 * x2 + 2.f * b * x2 * y2 + c * y2 * y2);
+  }
+  return m;
+}
+
+// Bit w set where warp w's pixels may composite a gaussian of mean (mx, my),
+// conic (a, b, c) and opacity op in the tile at (ox, oy): every warp's bit
+// unless the gaussian's power, -q/2 of the offset to the nearest pixel of
+// the warp's box, stays below the alpha >= 1/255 threshold -ln(255 op) by a
+// margin of 0.05 plus 1e-5 of the terms' magnitude (K1's power is that
+// exact value up to rounding; the quad form's cancellation is within the
+// second part).  A conic that is not positive definite, or values that are
+// not finite, keep every bit.
+__device__ __forceinline__ unsigned warps_that_may_composite(
+    float mx, float my, float a, float b, float c, float op, int ox, int oy,
+    int tile_x, int tile_y, int npix, int nwarps) {
+  const unsigned all = (1u << nwarps) - 1u;
+  if (!(a > 0.f && c > 0.f && a * c - b * b > 0.f && isfinite(mx) &&
+        isfinite(my) && isfinite(a) && isfinite(b) && isfinite(c))) {
+    return all;
+  }
+  if (!(op > 0.f)) return op <= 0.f ? 0u : all;  // op <= 0 never passes
+  const float xr = mx - static_cast<float>(ox);
+  const float yr = my - static_cast<float>(oy);
+  const float span = fabsf(xr) + fabsf(yr) + 2.f * (tile_x + tile_y);
+  const float limit = 2.f * (logf(255.f * op) + 0.05f +
+                             1e-5f * (a + fabsf(b) + c) * span * span);
+  const bool blocks = warp_blocks(tile_x, tile_y);
+  unsigned may = 0u;
+  for (int w = 0; w < nwarps; ++w) {
+    // the warp's pixels' box (tile-local), as the kernel lays them out
+    int x0, x1, y0, y1;
+    if (blocks) {
+      x0 = w % (tile_x / kBlockX) * kBlockX;
+      y0 = w / (tile_x / kBlockX) * kBlockY;
+      x1 = x0 + kBlockX - 1;
+      y1 = y0 + kBlockY - 1;
+    } else {
+      const int p0 = w * 32 * kPix;
+      const int p1 = min(p0 + 32 * kPix, npix) - 1;
+      y0 = p0 / tile_x;
+      y1 = p1 / tile_x;
+      x0 = y0 == y1 ? p0 - y0 * tile_x : 0;
+      x1 = y0 == y1 ? p1 - y1 * tile_x : tile_x - 1;
+    }
+    const float q = quad_min_box(a, b, c, xr - x1, xr - x0, yr - y1, yr - y0);
+    if (!(q > limit)) may |= 1u << w;
+  }
+  return may;
+}
+
 // CT > 0: compile-time channel count, d_out in registers.
 // CT == 0: runtime channel count C, d_out re-read from global memory.
-// F: the form (Form bits), 0 for f32.
+// F: the form (Form bits), 0 for f32.  kb: the batch, kBwdBatch unless the
+// slots of a large C do not fit (bwd_batch).
 template <int CT, int V, int F = 0>
-__global__ void __launch_bounds__(kMaxThreads)
+__global__ void __launch_bounds__(kMaxBwdThreads, 2)
 composite_backward_kernel(const float* __restrict__ table, int P, int C,
                           int Cg, const int* __restrict__ gauss_id,
                           const int* __restrict__ starts,
                           const int* __restrict__ counts, int grid_x,
-                          int tile_x, int tile_y,
+                          int tile_x, int tile_y, int kb,
                           const float* __restrict__ packed,
                           const float* __restrict__ d_packed,
                           float* __restrict__ d_inst) {
   constexpr bool kQuad = (F & kFormQuad) != 0;
   constexpr bool kPacked = (F & kFormPacked) != 0;
   constexpr float kPowerCut = kQuad ? kQuadPowerCut : 0.f;
+  constexpr int kAcc = CT > 0 ? CT : 1;
   extern __shared__ float smem[];
   const int nc = CT > 0 ? CT : C;
   const int row = kGeo + nc;
   const int nout = kGeo + Cg;
-  // the words of a row written: packed, the Cg sums as ceil(Cg/2) pairs
+  // the words of a row written and of a table row: packed, the Cg features
+  // as ceil(Cg/2) pairs
   const int nw = kPacked ? kGeo + (Cg + 1) / 2 : nout;
+  const int trow = kPacked ? kGeo + (Cg + 1) / 2 : row;
   const int npix = tile_x * tile_y;  // a multiple of 32 (checked by the host)
-  const int nwarps = npix >> 5;
-  float* s_rows = smem;                       // [kBwdBatch][row]
-  float* s_sum = s_rows + kBwdBatch * row;    // [kBwdBatch][nout]
-  float* s_part = s_sum + kBwdBatch * nout;   // [nwarps][kBwdBatch][nout]
-  // [kBwdBatch] each
-  int* s_gid = reinterpret_cast<int*>(s_part + nwarps * kBwdBatch * nout);
-  unsigned* s_mask = reinterpret_cast<unsigned*>(s_gid + kBwdBatch);
-  int* s_red = reinterpret_cast<int*>(s_mask + kBwdBatch);  // [kMaxWarps]
-  // [kBwdBatch][kCoef], kFormQuad only
-  float* s_coef = reinterpret_cast<float*>(s_red + kMaxWarps);
+  const int nthreads = blockDim.x;
+  const int nwarps = nthreads >> 5;
+  const int ks = kb + 1;                      // a value's slots apart
+  float* s_rows = smem;                       // [kb][row]
+  float* s_part = s_rows + kb * row;          // [nwarps][nout][ks]
+  // [kb]: bit w set where warp w may composite the instance (0 for a pad)
+  unsigned* s_may = reinterpret_cast<unsigned*>(s_part + nwarps * nout * ks);
+  int* s_red = reinterpret_cast<int*>(s_may + kb);  // [kMaxBwdWarps]
+  // [nwarps][kMaskWords]: bit k of a warp's words set where it wrote slot k
+  unsigned* s_wmask = reinterpret_cast<unsigned*>(s_red + kMaxBwdWarps);
+  // [kb][kCoef], kFormQuad only
+  float* s_coef = reinterpret_cast<float*>(s_wmask + nwarps * kMaskWords);
 
   const int t = blockIdx.x;
   const int tid = threadIdx.x;
@@ -207,41 +317,66 @@ composite_backward_kernel(const float* __restrict__ table, int P, int C,
   const int warp = tid >> 5;
   const int ox = (t % grid_x) * tile_x;
   const int oy = (t / grid_x) * tile_y;
-  const float px = static_cast<float>(ox + tid % tile_x);
-  const float py = static_cast<float>(oy + tid / tile_x);
-  // the tile-local basis of moments_basis
-  const float qx = static_cast<float>(tid % tile_x);
-  const float qy = static_cast<float>(tid / tile_x);
-  // and of kFormQuad, as K1 forms it
-  const float qxx = qx * qx;
-  const float qyy = qy * qy;
-  const float qxy = qx * qy;
   const int start = starts[t];
   const int count = counts[t];
   const size_t tile_off = static_cast<size_t>(t) * (nc + 2) * npix;
   const float* fwd_t = packed + tile_off;
   const float* dpk_t = d_packed + tile_off;
 
-  const int ncontrib = static_cast<int>(fwd_t[(nc + 1) * npix + tid]);
-  const float bg_term = fwd_t[nc * npix + tid] * dpk_t[nc * npix + tid];
-  constexpr int kAcc = CT > 0 ? CT : 1;
-  float dout[kAcc];
-  float tot = 0.f;
-  if (CT > 0) {
+  // this thread's pixels pix0 .. pix0 + 3 of the tile, all inside it or
+  // none (npix % 4 == 0): in the warp's block, or 128 a warp in row-major
+  // order where the tile does not divide into blocks
+  int pix0 = tid * kPix;
+  if (warp_blocks(tile_x, tile_y)) {
+    const int bpr = tile_x / kBlockX;
+    pix0 = (warp / bpr * kBlockY + (lane >> 2)) * tile_x +
+           warp % bpr * kBlockX + (lane & 3) * kPix;
+  }
+  const bool live = pix0 < npix;
+  float px[kPix], py[kPix], qx[kPix], qy[kPix], qxx[kPix], qyy[kPix],
+      qxy[kPix];
+  float T[kPix], pref[kPix], tot[kPix], bg_term[kPix];
+  float dout[kPix][kAcc];
+  int ncontrib[kPix];
+  int nmax = 0;
 #pragma unroll
-    for (int c = 0; c < kAcc; ++c) {
-      dout[c] = dpk_t[c * npix + tid];
-      tot += fwd_t[c * npix + tid] * dout[c];
+  for (int i = 0; i < kPix; ++i) {
+    const int pix = pix0 + i;
+    // the tile-local basis (moments_basis, kFormQuad) and the pixel centre
+    qx[i] = static_cast<float>(pix % tile_x);
+    qy[i] = static_cast<float>(pix / tile_x);
+    qxx[i] = qx[i] * qx[i];
+    qyy[i] = qy[i] * qy[i];
+    qxy[i] = qx[i] * qy[i];
+    px[i] = static_cast<float>(ox + pix % tile_x);
+    py[i] = static_cast<float>(oy + pix / tile_x);
+    T[i] = 1.f;
+    pref[i] = 0.f;
+    tot[i] = 0.f;
+    bg_term[i] = 0.f;
+    ncontrib[i] = 0;
+#pragma unroll
+    for (int c = 0; c < kAcc; ++c) dout[i][c] = 0.f;
+    if (live) {
+      ncontrib[i] = static_cast<int>(fwd_t[(nc + 1) * npix + pix]);
+      bg_term[i] = fwd_t[nc * npix + pix] * dpk_t[nc * npix + pix];
+      if (CT > 0) {
+#pragma unroll
+        for (int c = 0; c < kAcc; ++c) {
+          dout[i][c] = dpk_t[c * npix + pix];
+          tot[i] += fwd_t[c * npix + pix] * dout[i][c];
+        }
+      } else {
+        for (int c = 0; c < nc; ++c) {
+          tot[i] += fwd_t[c * npix + pix] * dpk_t[c * npix + pix];
+        }
+      }
     }
-  } else {
-    dout[0] = 0.f;
-    for (int c = 0; c < nc; ++c) {
-      tot += fwd_t[c * npix + tid] * dpk_t[c * npix + tid];
-    }
+    nmax = max(nmax, ncontrib[i]);
   }
 
   // the warp's and the tile's last contributing position
-  int wmax = ncontrib;
+  int wmax = nmax;
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
     wmax = max(wmax, __shfl_xor_sync(kFull, wmax, off));
@@ -252,22 +387,16 @@ composite_backward_kernel(const float* __restrict__ table, int P, int C,
   for (int w = 0; w < nwarps; ++w) limit = max(limit, s_red[w]);
   limit = min(limit, count);
 
-  float T = 1.f;
-  float pref = 0.f;
-
-  for (int b0 = 0; b0 < limit; b0 += kBwdBatch) {
-    const int nb = min(kBwdBatch, limit - b0);
-    // the previous batch's rows and sums have been consumed
+  float* part = s_part + warp * nout * ks;    // this warp's slots
+  for (int b0 = 0; b0 < limit; b0 += kb) {
+    const int nb = min(kb, limit - b0);
+    const int* gid_b = gauss_id + start + b0;
+    // the previous batch's rows, ids and sums have been read
     __syncthreads();
-    for (int k = tid; k < nb; k += npix) {
-      s_gid[k] = gauss_id[start + b0 + k];
-      s_mask[k] = 0u;
-    }
-    __syncthreads();
-    for (int e = tid; e < nb * row; e += npix) {
+    for (int e = tid; e < nb * row; e += nthreads) {
       const int k = e / row;
       const int col = e - k * row;
-      const int g = s_gid[k];
+      const int g = __ldg(gid_b + k);
       if constexpr (kPacked) {
         s_rows[e] = packed_value(table, P, g, Cg, col);
       } else {
@@ -276,175 +405,221 @@ composite_backward_kernel(const float* __restrict__ table, int P, int C,
                         : 0.f;
       }
     }
-    __syncthreads();
-    if constexpr (kQuad) {
-      for (int k = tid; k < nb; k += npix) {
-        quad_coefficients(s_rows + k * row, static_cast<float>(ox),
-                          static_cast<float>(oy), s_coef + k * kCoef);
+    for (int k = tid; k < nb; k += nthreads) {
+      const int g = __ldg(gid_b + k);
+      const bool real = g >= 0 && g < P;
+      // the geometry just staged, read again from the table
+      float geo[kGeo];
+#pragma unroll
+      for (int j = 0; j < kGeo; ++j) {
+        geo[j] = real ? __ldg(table + static_cast<size_t>(g) * trow + j)
+                      : 0.f;
       }
-      __syncthreads();
+      s_may[k] = !real ? 0u
+                 : V == kNoAlpha
+                     ? (1u << nwarps) - 1u
+                     : warps_that_may_composite(
+                           geo[0], geo[1], geo[2], geo[3], geo[4], geo[5], ox,
+                           oy, tile_x, tile_y, npix, nwarps);
+      if constexpr (kQuad) {
+        quad_coefficients(geo, static_cast<float>(ox), static_cast<float>(oy),
+                          s_coef + k * kCoef);
+      }
     }
+    __syncthreads();
 
     const int kend = min(nb, wmax - b0);  // the same for the whole warp
+    unsigned wrote = 0u;  // lane j: the slots 32 j .. 32 j + 31 written
     for (int k = 0; k < kend; ++k) {
-      const int g = s_gid[k];
-      if (g < 0 || g >= P) continue;  // pad sentinel, the same for the CTA
+      // a pad sentinel, or no pixel of this warp can pass the skip tests
+      if (!((s_may[k] >> warp) & 1u)) continue;
       const float* r = s_rows + k * row;
-      const float dx = r[0] - px;
-      const float dy = r[1] - py;
-      float raw;
-      bool pass;
-      if (V == kNoAlpha) {
-        raw = r[5];
-        pass = true;
-      } else {
-        float power;
-        if constexpr (kQuad) {
-          power = quad_power(s_coef + k * kCoef, qx, qy, qxx, qyy, qxy);
-        } else {
-          power = -0.5f * (r[2] * dx * dx + r[4] * dy * dy) - r[3] * dx * dy;
-        }
-        raw = V == kExp ? r[5] * expf(power) : r[5] * exp2f(power * kLog2e);
-        pass = power <= kPowerCut;
-      }
-      const float alpha = fminf(kAlphaMax, raw);
-      const bool contrib =
-          pass && (alpha >= kAlphaMin) && (b0 + k + 1 <= ncontrib);
-      if (__ballot_sync(kFull, contrib) == 0u) continue;
-
-      float w = 0.f;
-      float dpow = 0.f;
-      float geo[8];
+      float dx[kPix], dy[kPix], raw[kPix], alpha[kPix];
+      bool contrib[kPix];
+      bool any = false;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) geo[j] = 0.f;
-      if (contrib) {
+      for (int i = 0; i < kPix; ++i) {
+        dx[i] = r[0] - px[i];
+        dy[i] = r[1] - py[i];
+        bool pass;
+        if (V == kNoAlpha) {
+          raw[i] = r[5];
+          pass = true;
+        } else {
+          float power;
+          if constexpr (kQuad) {
+            power = quad_power(s_coef + k * kCoef, qx[i], qy[i], qxx[i],
+                               qyy[i], qxy[i]);
+          } else {
+            power = -0.5f * (r[2] * dx[i] * dx[i] + r[4] * dy[i] * dy[i]) -
+                    r[3] * dx[i] * dy[i];
+          }
+          raw[i] = V == kExp ? r[5] * expf(power)
+                             : r[5] * exp2f(power * kLog2e);
+          pass = power <= kPowerCut;
+        }
+        alpha[i] = fminf(kAlphaMax, raw[i]);
+        contrib[i] = pass && (alpha[i] >= kAlphaMin) &&
+                     (b0 + k + 1 <= ncontrib[i]);
+        any = any || contrib[i];
+      }
+      if (__ballot_sync(kFull, any) == 0u) continue;
+
+      // this thread's pixels' terms, added in pixel order: the same
+      // straight-line arithmetic for every pixel, its terms selected to
+      // zero where it does not composite (see Design).
+      float geo[8];
+      float fw[8];
+      float w_of[kPix];
+      float dsum = 0.f;
+      float wsum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        geo[j] = 0.f;
+        fw[j] = 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < kPix; ++i) {
         float gdot = 0.f;
         if (CT > 0) {
 #pragma unroll
-          for (int c = 0; c < kAcc; ++c) gdot += r[kGeo + c] * dout[c];
-        } else {
+          for (int c = 0; c < kAcc; ++c) gdot += r[kGeo + c] * dout[i][c];
+        } else if (contrib[i]) {
           for (int c = 0; c < nc; ++c) {
-            gdot += r[kGeo + c] * dpk_t[c * npix + tid];
+            gdot += r[kGeo + c] * dpk_t[c * npix + pix0 + i];
           }
         }
-        w = alpha * T;
-        pref += w * gdot;
-        const float suffix = tot - pref;
-        const float da = T * gdot - (suffix + bg_term) / (1.f - alpha);
-        dpow = raw < kAlphaMax ? raw * da : 0.f;
+        const float w = contrib[i] ? alpha[i] * T[i] : 0.f;
+        if (contrib[i]) pref[i] += w * gdot;
+        const float suffix = tot[i] - pref[i];
+        // 1 - alpha >= 0.01: alpha is capped at 0.99
+        const float da = T[i] * gdot -
+                         __fdividef(suffix + bg_term[i], 1.f - alpha[i]);
+        const float dpow =
+            contrib[i] && raw[i] < kAlphaMax ? raw[i] * da : 0.f;
         if (V == kMomentsBasis) {
-          geo[0] = dpow;
-          geo[1] = dpow * qx;
-          geo[2] = dpow * qy;
-          geo[3] = dpow * (qx * qx);
-          geo[4] = dpow * (qy * qy);
-          geo[5] = dpow * (qx * qy);
-        } else if (V != kNoMoments) {
-          const float dpx = dpow * dx;
-          const float dpy = dpow * dy;
-          geo[0] = dpx;
-          geo[1] = dpy;
-          geo[2] = dpx * dx;
-          geo[3] = dpx * dy;
-          geo[4] = dpy * dy;
-          geo[5] = dpow;
+          geo[0] += dpow;
+          geo[1] += dpow * qx[i];
+          geo[2] += dpow * qy[i];
+          geo[3] += dpow * qxx[i];
+          geo[4] += dpow * qyy[i];
+          geo[5] += dpow * qxy[i];
+        } else if (V == kNoMoments) {
+          dsum += dpow;
+        } else {
+          const float dpx = dpow * dx[i];
+          const float dpy = dpow * dy[i];
+          geo[0] += dpx;
+          geo[1] += dpy;
+          geo[2] += dpx * dx[i];
+          geo[3] += dpx * dy[i];
+          geo[4] += dpy * dy[i];
+          geo[5] += dpow;
         }
-        T = T * (1.f - alpha);
+        if (V == kNoDfeat) {
+          wsum += w;
+        } else if (CT > 0) {
+#pragma unroll
+          for (int c = 0; c < kAcc && c < 8; ++c) fw[c] += w * dout[i][c];
+        }
+        w_of[i] = w;
+        if (contrib[i]) T[i] = T[i] * (1.f - alpha[i]);
       }
 
-      float* part = s_part + (warp * kBwdBatch + k) * nout;
+      // the warp's sums into its slots
       const int slot = lane >> 2;  // the value this lane's group sums
       const bool writer = (lane & 3) == 0;
       if (V == kNoMoments) {
-        const float s = warp_sum(dpow);
-        if (lane == 0) {
-#pragma unroll
-          for (int j = 0; j < kGeo; ++j) part[j] = s;
-        }
+        const float s = warp_sum(dsum);
+        if (lane < kGeo) part[lane * ks + k] = s;
       } else {
         const float gsum = warp_sum8(geo, lane);
-        if (writer && slot < kGeo) part[slot] = gsum;
+        if (writer && slot < kGeo) part[slot * ks + k] = gsum;
       }
       if (V == kNoDfeat) {
         if (Cg > 0) {
-          const float s = warp_sum(w);
-          if (lane == 0) {
-            part[kGeo] = s;
-            for (int c = 1; c < Cg; ++c) part[kGeo + c] = 0.f;
+          const float s = warp_sum(wsum);
+          for (int c = lane; c < Cg; c += 32) {
+            part[(kGeo + c) * ks + k] = c == 0 ? s : 0.f;
           }
         }
       } else if (CT > 0) {
         if (Cg > 0) {
-          float fw[8];
-#pragma unroll
-          for (int c = 0; c < 8; ++c) {
-            fw[c] = (c < kAcc && c < Cg) ? w * dout[c < kAcc ? c : 0] : 0.f;
-          }
           const float fsum = warp_sum8(fw, lane);
-          if (writer && slot < Cg) part[kGeo + slot] = fsum;
+          if (writer && slot < Cg) part[(kGeo + slot) * ks + k] = fsum;
         }
       } else {
         for (int c = 0; c < Cg; ++c) {
-          const float x = warp_sum(w * dpk_t[c * npix + tid]);
-          if (lane == 0) part[kGeo + c] = x;
+          float x = 0.f;
+#pragma unroll
+          for (int i = 0; i < kPix; ++i) {
+            if (contrib[i]) x += w_of[i] * dpk_t[c * npix + pix0 + i];
+          }
+          x = warp_sum(x);
+          if (lane == 0) part[(kGeo + c) * ks + k] = x;
         }
       }
-      if (lane == 0) atomicOr(s_mask + k, 1u << warp);
+      if (lane == (k >> 5)) wrote |= 1u << (k & 31);
     }
+    if (lane < kMaskWords) s_wmask[warp * kMaskWords + lane] = wrote;
     __syncthreads();
 
-    // per-instance sums over the warps that took part, in warp order
-    for (int e = tid; e < nb * nout; e += npix) {
-      const int k = e / nout;
-      const int j = e - k * nout;
-      unsigned m = s_mask[k];
+    // per-instance sums over the warps that wrote a slot, in warp order,
+    // into warp 0's slots
+    for (int e = tid; e < nout * nb; e += nthreads) {
+      const int j = e / nb;
+      const int k = e - j * nb;
+      float* p = s_part + j * ks + k;
+      const unsigned* m = s_wmask + (k >> 5);
+      const unsigned bit = 1u << (k & 31);
       float s = 0.f;
-      while (m) {
-        const int w = __ffs(m) - 1;
-        m &= m - 1u;
-        s += s_part[(w * kBwdBatch + k) * nout + j];
+      for (int w = 0; w < nwarps; ++w) {
+        if (m[w * kMaskWords] & bit) s += p[w * nout * ks];
       }
-      s_sum[e] = s;
+      p[0] = s;
     }
     __syncthreads();
-    for (int e = tid; e < nb * nw; e += npix) {
+    for (int e = tid; e < nb * nw; e += nthreads) {
       const int k = e / nw;
       const int j = e - k * nw;
       const float* r = s_rows + k * row;
-      const float* q = s_sum + k * nout;
+      const float* q = s_part + k;  // value x of instance k at q[x * ks]
       float o;
       if (kPacked && j >= kGeo) {
         // feature sums c, c+1 as one word of RNE bf16 pairs
         const int c = kGeo + 2 * (j - kGeo);
-        const unsigned lo = c + 1 < nout ? round_bf16_bits(q[c + 1]) >> 16
-                                         : 0u;
-        o = __uint_as_float(round_bf16_bits(q[c]) | lo);
+        const unsigned lo =
+            c + 1 < nout ? round_bf16_bits(q[(c + 1) * ks]) >> 16 : 0u;
+        o = __uint_as_float(round_bf16_bits(q[c * ks]) | lo);
       } else if (V == kMomentsBasis && j < kGeo) {
         // q = M0..M5 over (1, qx, qy, qx^2, qy^2, qx qy)
+        const float m0 = q[0], m1 = q[ks], m2 = q[2 * ks];
         const float xr = r[0] - static_cast<float>(ox);
         const float yr = r[1] - static_cast<float>(oy);
-        const float sx = xr * q[0] - q[1];
-        const float sy = yr * q[0] - q[2];
+        const float sx = xr * m0 - m1;
+        const float sy = yr * m0 - m2;
         switch (j) {
           case 0: o = -(r[2] * sx + r[3] * sy); break;
           case 1: o = -(r[4] * sy + r[3] * sx); break;
-          case 2: o = -0.5f * (xr * xr * q[0] - 2.f * xr * q[1] + q[3]); break;
-          case 3: o = -(xr * yr * q[0] - xr * q[2] - yr * q[1] + q[5]); break;
-          case 4: o = -0.5f * (yr * yr * q[0] - 2.f * yr * q[2] + q[4]); break;
-          default: o = r[5] > 0.f ? q[0] / r[5] : 0.f; break;
+          case 2: o = -0.5f * (xr * xr * m0 - 2.f * xr * m1 + q[3 * ks]); break;
+          case 3:
+            o = -(xr * yr * m0 - xr * m2 - yr * m1 + q[5 * ks]);
+            break;
+          case 4: o = -0.5f * (yr * yr * m0 - 2.f * yr * m2 + q[4 * ks]); break;
+          default: o = r[5] > 0.f ? m0 / r[5] : 0.f; break;
         }
       } else if (V == kNoMoments && j < kGeo) {
-        o = j == 5 ? (r[5] > 0.f ? q[5] / r[5] : 0.f) : q[j];
+        o = j == 5 ? (r[5] > 0.f ? q[5 * ks] / r[5] : 0.f) : q[j * ks];
       } else {
         // q = sx, sy, sxx, sxy, syy, s0, feats
         switch (j) {
-          case 0: o = -(r[2] * q[0] + r[3] * q[1]); break;
-          case 1: o = -(r[4] * q[1] + r[3] * q[0]); break;
-          case 2: o = -0.5f * q[2]; break;
-          case 3: o = -q[3]; break;
-          case 4: o = -0.5f * q[4]; break;
-          case 5: o = r[5] > 0.f ? q[5] / r[5] : 0.f; break;
-          default: o = q[j]; break;
+          case 0: o = -(r[2] * q[0] + r[3] * q[ks]); break;
+          case 1: o = -(r[4] * q[ks] + r[3] * q[0]); break;
+          case 2: o = -0.5f * q[2 * ks]; break;
+          case 3: o = -q[3 * ks]; break;
+          case 4: o = -0.5f * q[4 * ks]; break;
+          case 5: o = r[5] > 0.f ? q[5 * ks] / r[5] : 0.f; break;
+          default: o = q[j * ks]; break;
         }
       }
       d_inst[static_cast<size_t>(start + b0 + k) * nw + j] = o;
@@ -452,14 +627,24 @@ composite_backward_kernel(const float* __restrict__ table, int P, int C,
   }
 }
 
-size_t smem_bytes(int C, int Cg, int npix, bool quad = false) {
+// The threads of a tile of npix pixels: kPix a thread, in whole warps.
+inline int bwd_threads(int npix) {
+  return (npix + 32 * kPix - 1) / (32 * kPix) * 32;
+}
+
+size_t smem_bytes(int C, int Cg, int nwarps, int kb, bool quad) {
   const size_t row = kGeo + C;
   const size_t nout = kGeo + Cg;
-  const size_t nwarps = npix / 32;
-  return (kBwdBatch * row + kBwdBatch * nout + nwarps * kBwdBatch * nout) *
+  return (kb * row + nwarps * nout * (kb + 1) + (quad ? kb * kCoef : 0)) *
              sizeof(float) +
-         2 * kBwdBatch * sizeof(int) + kMaxWarps * sizeof(int) +
-         (quad ? kBwdBatch * kCoef * sizeof(float) : 0);
+         (kb + kMaxBwdWarps + nwarps * kMaskWords) * sizeof(int);
+}
+
+// The batch: kBwdBatch, halved while its shared memory does not fit a block.
+inline int bwd_batch(int C, int Cg, int nwarps, bool quad) {
+  int kb = kBwdBatch;
+  while (kb > 1 && smem_bytes(C, Cg, nwarps, kb, quad) > kMaxSmem) kb >>= 1;
+  return kb;
 }
 
 template <int CT, int V, int F = 0>
@@ -468,19 +653,43 @@ int launch_backward(const float* table, int P, int C, int Cg,
                     int num_tiles, int grid_x, int tile_x, int tile_y,
                     const float* packed, const float* d_packed, float* d_inst,
                     cudaStream_t stream) {
-  const size_t smem =
-      smem_bytes(C, Cg, tile_x * tile_y, (F & kFormQuad) != 0);
+  constexpr bool quad = (F & kFormQuad) != 0;
+  const int threads = bwd_threads(tile_x * tile_y);
+  const int kb = bwd_batch(C, Cg, threads / 32, quad);
+  const size_t smem = smem_bytes(C, Cg, threads / 32, kb, quad);
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         composite_backward_kernel<CT, V, F>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  composite_backward_kernel<CT, V, F><<<num_tiles, tile_x * tile_y, smem,
-                                        stream>>>(
-      table, P, C, Cg, gauss_id, starts, counts, grid_x, tile_x, tile_y,
+  composite_backward_kernel<CT, V, F><<<num_tiles, threads, smem, stream>>>(
+      table, P, C, Cg, gauss_id, starts, counts, grid_x, tile_x, tile_y, kb,
       packed, d_packed, d_inst);
   return static_cast<int>(cudaGetLastError());
+}
+
+// CTAs of the kernel an SM holds at once for this shape (0 on an error).
+template <int CT, int V, int F = 0>
+int backward_occupancy(int C, int Cg, int tile_x, int tile_y) {
+  constexpr bool quad = (F & kFormQuad) != 0;
+  const int threads = bwd_threads(tile_x * tile_y);
+  const size_t smem = smem_bytes(C, Cg, threads / 32,
+                                 bwd_batch(C, Cg, threads / 32, quad), quad);
+  if (smem > 48 * 1024 &&
+      cudaFuncSetAttribute(composite_backward_kernel<CT, V, F>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem)) != cudaSuccess) {
+    return 0;
+  }
+  int n = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, composite_backward_kernel<CT, V, F>, threads, smem) !=
+      cudaSuccess) {
+    return 0;
+  }
+  return n;
 }
 
 }  // namespace

@@ -8,6 +8,7 @@
 //
 // Compiled for C = 3, 5 and 7 (the channel counts the port's paths reach)
 // and for a runtime C.  The f32 form keeps its own entry (composite_bwd.cu).
+// A second entry says how many CTAs of each an SM holds.
 #include "composite_bwd.cuh"
 
 namespace {
@@ -42,6 +43,16 @@ int launch_c(const Args& a) {
   }
 }
 
+template <int F>
+int occupancy_c(int C, int Cg, int tile_x, int tile_y) {
+  switch (C) {
+    case 3: return backward_occupancy<3, kBwdBase, F>(C, Cg, tile_x, tile_y);
+    case 5: return backward_occupancy<5, kBwdBase, F>(C, Cg, tile_x, tile_y);
+    case 7: return backward_occupancy<7, kBwdBase, F>(C, Cg, tile_x, tile_y);
+    default: return backward_occupancy<0, kBwdBase, F>(C, Cg, tile_x, tile_y);
+  }
+}
+
 }  // namespace
 
 // form: 1 quad, 2 packed, 3 both; the other arguments are
@@ -72,5 +83,19 @@ extern "C" int gsplat_composite_backward_form(
     case kFormQuad: return launch_c<kFormQuad>(a);
     case kFormPacked: return launch_c<kFormPacked>(a);
     default: return launch_c<kFormQuad | kFormPacked>(a);
+  }
+}
+
+// CTAs of gsplat_composite_backward_form's kernel an SM holds at once (0 on
+// an error).
+extern "C" int gsplat_composite_backward_form_occupancy(int form, int C,
+                                                        int Cg, int tile_x,
+                                                        int tile_y) {
+  switch (form) {
+    case kFormQuad: return occupancy_c<kFormQuad>(C, Cg, tile_x, tile_y);
+    case kFormPacked: return occupancy_c<kFormPacked>(C, Cg, tile_x, tile_y);
+    case kFormQuad | kFormPacked:
+      return occupancy_c<kFormQuad | kFormPacked>(C, Cg, tile_x, tile_y);
+    default: return 0;
   }
 }

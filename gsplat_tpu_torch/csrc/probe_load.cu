@@ -32,9 +32,16 @@
 //
 // Design.  load_only stages through K1's own stage_batch and
 // compute_resident is K1's kernel itself, so both follow K1; both are
-// compiled for C = 7 and a runtime C like P1.  The gather and the copy are
-// grid-stride loops, 16 bytes a thread where the row width allows (R a
-// multiple of 4), else 4.
+// compiled for C = 7 and a runtime C like P1.  block_copy, and row_gather
+// at a row width R that is a multiple of 4, are grid-stride loops of 16
+// bytes a thread.  Any other R (the production table's 13 floats among
+// them) gathers 32 rows a warp at a time: the warp reads the 32 ids in one
+// coalesced load and hands each out by shuffle, and each lane then writes
+// elements lane, lane + 32, ... of the 32 rows' contiguous 32 R floats of
+// output, their R loads issued from an unrolled loop before any store, so
+// a lane has up to R independent loads in flight and the warp's stores are
+// coalesced.  R = 13 is compiled with its width known (the division by R a
+// multiply); other widths take R at run time, 8 loads in flight a lane.
 //
 // Bound on the H100: bytes for load_only, row_gather and block_copy (what
 // they read and write once), operations for compute_resident (K1's count on
@@ -46,6 +53,7 @@
 namespace {
 
 constexpr int kGatherThreads = 256;
+constexpr unsigned kFullMask = 0xffffffffu;
 
 enum LoadVariant {
   kLoadOnly = 0,
@@ -115,6 +123,52 @@ probe_gather_kernel(const float* __restrict__ src, int P, int R,
         v = Vec{};
       }
       o[e] = v;
+    }
+  }
+}
+
+// row_gather at any R: 32 rows a warp at a time, their ids read once and
+// handed out by shuffle.  RT > 0: R known at compile time, every element of
+// a lane's share loaded before any is stored; RT == 0: R at run time, in
+// steps of kGatherUnroll elements.
+constexpr int kGatherUnroll = 8;
+
+template <int RT>
+__global__ void __launch_bounds__(kGatherThreads)
+probe_gather_rows_kernel(const float* __restrict__ src, int P, int R,
+                         const int* __restrict__ ids, int I,
+                         float* __restrict__ out) {
+  constexpr int kSteps = RT > 0 ? RT : kGatherUnroll;
+  const int r = RT > 0 ? RT : R;
+  const int lane = threadIdx.x & 31;
+  const long long warps =
+      static_cast<long long>(gridDim.x) * (kGatherThreads / 32);
+  for (long long base = (static_cast<long long>(blockIdx.x) *
+                             (kGatherThreads / 32) +
+                         (threadIdx.x >> 5)) *
+                        32;
+       base < I; base += warps * 32) {
+    const int nrows = static_cast<int>(min(32LL, I - base));
+    const int g = lane < nrows ? __ldg(ids + base + lane) : -1;
+    const unsigned n = static_cast<unsigned>(nrows * r);  // floats to write
+    float* o = out + base * r;
+    for (unsigned e0 = 0; e0 < n; e0 += 32u * kSteps) {
+      float v[kSteps];
+#pragma unroll
+      for (int j = 0; j < kSteps; ++j) {
+        const unsigned e = e0 + lane + 32u * j;
+        const unsigned row = e / static_cast<unsigned>(r);
+        const int gr = __shfl_sync(kFullMask, g, row & 31u);
+        v[j] = (e < n && gr >= 0 && gr < P)
+                   ? __ldg(src + static_cast<size_t>(gr) * r +
+                           (e - row * static_cast<unsigned>(r)))
+                   : 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < kSteps; ++j) {
+        const unsigned e = e0 + lane + 32u * j;
+        if (e < n) o[e] = v[j];
+      }
     }
   }
 }
@@ -214,6 +268,21 @@ extern "C" int gsplat_probe_gather(int variant, const void* src, int P,
   const int* id = static_cast<const int*>(ids);
   float* o = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (variant == kRowGather && R % 4 != 0) {
+    const long long groups = (static_cast<long long>(I) + 31) / 32;
+    const long long need = (groups + kGatherThreads / 32 - 1) /
+                           (kGatherThreads / 32);
+    const int blocks = static_cast<int>(need < (1LL << 20) ? need
+                                                            : (1LL << 20));
+    if (R == 13) {
+      probe_gather_rows_kernel<13><<<blocks, kGatherThreads, 0, st>>>(
+          s, P, R, id, I, o);
+    } else {
+      probe_gather_rows_kernel<0><<<blocks, kGatherThreads, 0, st>>>(
+          s, P, R, id, I, o);
+    }
+    return static_cast<int>(cudaGetLastError());
+  }
   const bool vec = R % 4 == 0;
   const long long n = static_cast<long long>(I) * (vec ? R / 4 : R);
   const long long blocks_needed = (n + kGatherThreads - 1) / kGatherThreads;

@@ -466,6 +466,20 @@ def composite_backward(table, gauss_id, starts, counts, grid_x: int,
     return d_inst
 
 
+def backward_occupancy(C: int, Cg: int, form: Form = F32) -> int:
+    """CTAs of K2's kernel in ``form`` that one SM of the current card holds
+    at once at this tile shape, C and Cg (``chip_smoke.py`` prints them
+    beside ptxas's registers); needs a card."""
+    lib = _kernels.lib()
+    if form == F32:
+        n = lib.gsplat_composite_backward_occupancy(C, Cg, TILE_X, TILE_Y)
+    else:
+        n = lib.gsplat_composite_backward_form_occupancy(form.bits, C, Cg,
+                                                         TILE_X, TILE_Y)
+    _kernels.require(n > 0, f"K2{form.name}: no occupancy at C={C}, Cg={Cg}")
+    return n
+
+
 def scrub_nonfinite(d_inst, form: Form = F32):
     """Zeroes, in place, the non-finite values of K2's rows before they are
     reduced (the finite half of composite_pallas.py:666-677's scrub; the

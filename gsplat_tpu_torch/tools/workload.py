@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from gsplat_tpu_torch.ops import composite_cuda as comp
+from gsplat_tpu_torch.ops import segment_reduce as seg
 from gsplat_tpu_torch.ops.composite_ref import ALPHA_MIN
 from gsplat_tpu_torch.tools.probes import TILES_PER_CTA
 
@@ -326,6 +327,47 @@ def resident_ids(gauss_id, starts, counts, batch=comp._KERNEL_BATCH):
     base = starts.long()[tile]
     out[base + pos] = gauss_id[base + pos % batch]
     return out
+
+
+def form_of(name: str) -> "comp.Form":
+    """K1's and K2's form by name ("f32", "quad", "packed", "packed_quad")
+    at the asset's C = 7: the packed forms with the ones channel."""
+    packed = "packed" in name
+    return comp.Form(mxu_power="quad" in name, feat_packed=packed,
+                     with_ones=packed)
+
+
+def form_table(table, Cg: int, form) -> torch.Tensor:
+    """A [P, 6+C] table in ``form``'s layout: packed, its Cg features as
+    bf16 pairs after the geometry (the ones channel is made in the
+    kernel)."""
+    if not form.feat_packed:
+        return table
+    return torch.cat([table[:, :6], seg.pack_bf16_pairs(table[:, 6:6 + Cg])],
+                     dim=1).contiguous()
+
+
+def compare_form_rows(got, want, Cg: int, packed: bool):
+    """K2's rule on a form's rows: each column within 1e-3 of its largest
+    |value|; packed feature words compared after unpacking, with one bf16
+    ulp of the value beyond that (the RNE of two f32 sums taken in another
+    order can differ by one step).  Returns (max |diff|, the worst
+    column's diff over its scale, values outside)."""
+    if packed:
+        got = torch.cat([got[:, :6], seg.unpack_bf16_pairs(got[:, 6:], Cg)],
+                        dim=1)
+        want = torch.cat([want[:, :6], seg.unpack_bf16_pairs(want[:, 6:],
+                                                               Cg)], dim=1)
+    d = (got - want).abs()
+    scale = want.abs().amax(dim=0)
+    tol = 1e-3 * scale[None].expand_as(d)
+    if packed:
+        mag = torch.maximum(got.abs(), want.abs())[:, 6:]
+        ulp = torch.exp2(torch.floor(torch.log2(mag.clamp_min(1e-30))) - 7)
+        tol = torch.cat([tol[:, :6], tol[:, 6:] + ulp], dim=1)
+    bad = int((d > tol).sum())
+    worst = float((d.amax(dim=0) / scale.clamp_min(1e-30)).max())
+    return float(d.max()), worst, bad
 
 
 def load_workload(kind, device="cuda") -> Workload:

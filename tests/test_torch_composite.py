@@ -101,7 +101,9 @@ def test_tile_ranges_clamp():
 
 def test_tile16_matches_jax_in_subprocess():
     """Both packages snapshot GSPLAT_TILE_X/Y at import, so the 16x16 tile
-    (the CUDA reference's own) runs in a fresh interpreter."""
+    (the CUDA reference's own) runs in a fresh interpreter: the images, and
+    the gradients of one loss through K2's plain version against
+    ``jax.grad`` of the Pallas path."""
     here = os.path.dirname(os.path.abspath(__file__))
     path = [os.path.dirname(here), here, os.environ.get("PYTHONPATH", "")]
     env = dict(os.environ, GSPLAT_TILE_X="16", GSPLAT_TILE_Y="16",
@@ -122,6 +124,29 @@ def _tile16_main():
     assert_images_close(to, jo, ["render", "depth", "alpha", "segment",
                                  "T_final"])
     assert int(to["num_rendered"]) == int(jo["num_rendered"])
+
+    # every input's gradient at test_torch_composite_bwd.py's single-chunk
+    # tolerance (scaled atol 1e-3, tests/test_pallas_composite.py:96-100)
+    import jax.numpy as jnp
+    from test_torch_composite_bwd import _assert_grads_close, _grads_both
+    W, H = 64, 48
+    tgt = rng.uniform(size=(3, H, W)).astype(np.float32)
+    wseg = rng.uniform(size=(2, H, W)).astype(np.float32)
+
+    def loss_j(out):
+        return (jnp.mean((out["render"] - jnp.asarray(tgt)) ** 2)
+                + 0.05 * jnp.mean(out["depth"])
+                + 0.02 * jnp.mean(out["alpha"])
+                + 0.03 * jnp.mean(out["segment"] * jnp.asarray(wseg)))
+
+    def loss_t(out):
+        return (torch.mean((out["render"] - torch.from_numpy(tgt)) ** 2)
+                + 0.05 * torch.mean(out["depth"])
+                + 0.02 * torch.mean(out["alpha"])
+                + 0.03 * torch.mean(out["segment"] * torch.from_numpy(wseg)))
+
+    gj, gt = _grads_both(g, W, H, 2, loss_j, loss_t, 1 << 13)
+    _assert_grads_close(gt, gj, 1e-3)
 
 
 if __name__ == "__main__":

@@ -148,6 +148,7 @@ def test_import_is_jax_free():
             "gsplat_tpu_torch.tools.bench_dma_overhead, "
             "gsplat_tpu_torch.tools.bench_inkernel_gather, "
             "gsplat_tpu_torch.tools.bench_vpu_dtype, "
+            "gsplat_tpu_torch.tools.k2_trees, "
             "gsplat_tpu_torch.tools.sass_diff\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'gsplat_tpu' or m.startswith('gsplat_tpu.')]\n"
