@@ -80,13 +80,16 @@ Phases (any failure exits non-zero; nothing is caught):
    each single form, and bench.py's serving configuration
    (``render_only=True, feat_precision="bf16"``) at 1080p: its frame
    median and device busy time;
-12. (g) K2 at 16x16 tiles: the tile shape is read at import, so a fresh
-   interpreter (this script with ``--tile16`` and ``GSPLAT_TILE_X/Y=16``,
-   started after the build and held until this phase) renders a seeded scene of 4,000 gaussians at 256x256 and holds K2 in
-   each of its four forms against its plain version by the rule of (f),
-   rows finite, pad slots zero, two launches bit-equal; its time is
-   printed.  K2's CTAs per SM at C = 3, 5, 7 and a runtime C are printed
-   beside ptxas's registers.
+12. (g) K1 and K2 at 16x16 tiles: the tile shape is read at import, so a
+   fresh interpreter (this script with ``--tile16`` and
+   ``GSPLAT_TILE_X/Y=16``, started after the build and held until this
+   phase) renders a seeded scene of 4,000 gaussians at 256x256 and holds
+   K1 and K2 in each of their four forms against their plain versions by
+   the rules of 4. and (f) (K1 within the channels' tolerances, n_contrib
+   equal; K2's rows finite, pad slots zero, two launches bit-equal); its
+   time is printed.  K1's and K2's CTAs per SM at C = 3, 5, 7 and a
+   runtime C are printed beside ptxas's registers and spills (K1's also
+   in 4. and (f)).
 
 The last three lines are the kernel table as one JSON object (K1 to K4,
 K3x, P1 to P4 with every variant, and K1's and K2's forms), the card line,
@@ -99,6 +102,7 @@ import ctypes
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -115,6 +119,29 @@ ASSET = os.path.join("assets", "trained_scene_big.npz")
 def check(cond, msg):
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
+
+
+# ptxas's -v report of the build, kept for the phases that print K1's
+# registers and spills
+PTXAS = {"report": ""}
+_K1_ENTRY = re.compile(r"composite_forward_kernelILi(\d+)ELi0ELi(\d+)E")
+
+
+def k1_ptxas(C, bits):
+    """ptxas's registers and spill stores of K1's production kernel at
+    compile-time C in the form of Form bits ``bits`` (kFormQuad 1,
+    kFormPacked 2, kFormOnes 4), from the build's report: "N registers,
+    S bytes spilled"."""
+    lines = PTXAS["report"].splitlines()
+    for i, line in enumerate(lines):
+        m = _K1_ENTRY.search(line)
+        if m and "Compiling entry" in line and (int(m[1]), int(m[2])) == (
+                C, bits):
+            regs = re.search(r"Used (\d+) registers", lines[i + 3])
+            spill = re.search(r"(\d+) bytes spill stores", lines[i + 2])
+            return (f"{regs[1] if regs else '?'} registers, "
+                    f"{spill[1] if spill else '?'} bytes spilled")
+    return "not in the report"
 
 
 def card_line():
@@ -140,13 +167,13 @@ def event_ms(torch, fn, iters, warmup=2):
     return a.elapsed_time(b) / iters
 
 
-def compare_k1(comp, packed, packed_p, C):
+def compare_k1(comp, packed, packed_p, C, width=W, height=H):
     """K1 output against its plain version: (max |diff| over the channels
     and T_final, pixels over tolerance per channel, n_contrib mismatches)."""
     channels = {"rgb": slice(0, 3), "depth": slice(3, 4),
                 "segment": slice(4, 4 + NUM_CLASS), "alpha": slice(C - 1, C)}
-    img, tf = comp.unpack_tiles(packed, C, W, H)
-    img_p, tf_p = comp.unpack_tiles(packed_p, C, W, H)
+    img, tf = comp.unpack_tiles(packed, C, width, height)
+    img_p, tf_p = comp.unpack_tiles(packed_p, C, width, height)
     err, over = 0.0, {}
     for name, sl in channels.items():
         d = (img[sl] - img_p[sl]).abs()
@@ -1238,6 +1265,10 @@ def phase_form_kernels(torch, card, w):
             check(bits_equal(torch, out_k[:, C:], w.packed[:, C:]),
                   f"K1 {name}: T_final or n_contrib differs from the f32 form")
         ms1 = event_ms(torch, lambda: comp.composite_forward(*k1), 20)
+        bits = form.bits | (4 if form.with_ones else 0)
+        cg = Cg if form.feat_packed else C
+        occ1 = (f"{comp.forward_occupancy(C, cg, form)} CTAs per SM, "
+                f"{k1_ptxas(C, bits)}")
         pairs = (wl.k1_pair_counts(w.table, gid, starts, counts, gx,
                                    out_k[:, C + 1], quad=True)
                  if form.mxu_power else w.pairs)
@@ -1284,7 +1315,8 @@ def phase_form_kernels(torch, card, w):
             "max_abs_err": err2, "ms": ms2, "plain_ms": plain2_ms,
             "bound_ms": bound2, "bound_by": by2, "library_ms": None}
         print(f"forms (f) [{card}] {name}: K1 vs plain max |diff| {err1:.3g}"
-              f", n_contrib equal; {ms1:.4f} ms (plain {plain_ms:.1f} ms), "
+              f", n_contrib equal; {occ1}; {ms1:.4f} ms (plain "
+              f"{plain_ms:.1f} ms), "
               f"bound {bound1:.4f} ms ({bytes1} bytes, {ops1} ops; pairs "
               f"{pairs['tested']} tested, {pairs['composited']} composited)"
               f"; K2 vs plain max |diff| {err2:.3g} (worst column "
@@ -1448,7 +1480,7 @@ def form_rows(rows, launches):
     return out
 
 
-# (g) K2 at 16x16 tiles, in a fresh interpreter
+# (g) K1 and K2 at 16x16 tiles, in a fresh interpreter
 TILE16_GAUSSIANS, TILE16_SIZE, TILE16_TIMEOUT = 4000, 256, 120
 
 
@@ -1480,7 +1512,8 @@ def phase_tile16(card, child):
 
 
 def tile16_main():
-    """(g) K2 in each form at 16x16 tiles against its plain version, on a
+    """(g) K1 and K2 in each form at 16x16 tiles against their plain
+    versions, on a
     seeded 256x256 scene: C = 7 channels as the asset's (rgb, depth, two
     segments, ones; Cg = 6), a cotangent from a generator seeded 3."""
     import numpy as np
@@ -1545,6 +1578,13 @@ def tile16_main():
         form = wl.form_of(name)
         tab = wl.form_table(table, Cg, form)
         out = comp.composite_forward(tab, gid, starts, counts, gx, form, Cg)
+        out_p = comp.composite_forward_plain(tab, gid, starts, counts, gx,
+                                             form, Cg)
+        err1, over, nc_diff = compare_k1(comp, out, out_p, C, S, S)
+        check(sum(over.values()) == 0 and nc_diff == 0
+              and bool(torch.isfinite(out).all()),
+              f"tile16 K1 {name}: kernel disagrees with its plain version "
+              f"({json.dumps(over)}, n_contrib at {nc_diff} pixels)")
         k2 = (tab, gid, starts, counts, gx, out, d_packed, Cg, form)
         d_k = comp.composite_backward(*k2)
         d_p = comp.composite_backward_plain(*k2)
@@ -1558,14 +1598,30 @@ def tile16_main():
               f"(worst column {worst:.3g} of its largest)")
         check(torch.equal(comp.composite_backward(*k2), d_k),
               f"tile16 K2 {name}: two launches gave different bits")
-        lines.append(f"{name} max |diff| {err:.3g} (worst column "
-                     f"{worst:.2e} of its largest), rows written "
+        lines.append(f"{name} K1 max |diff| {err1:.3g}, n_contrib equal; K2 "
+                     f"max |diff| {err:.3g} (worst column {worst:.2e} of its "
+                     f"largest), rows written "
                      f"{int((d_k != 0).any(dim=1).sum())}")
     print(f"tile16 (g): {n} gaussians at {S}x{S}, {gx * gy} tiles of 16x16, "
-          f"{int(bins.num_rendered)} instances; K2 against its plain version: "
-          + "; ".join(lines))
+          f"{int(bins.num_rendered)} instances; K1 and K2 against their plain "
+          "versions: " + "; ".join(lines))
     print(f"tile16 (g): ok in {time.perf_counter() - t0:.1f} s")
     return 0
+
+
+def k1_occupancy(comp):
+    """K1's CTAs per SM at this tile shape, as ``k2_occupancy`` asks K2's:
+    f32 at C = 3, 5, 7 and 9 (its runtime-C kernel), the packed quad form
+    at C = 3 (without the ones channel), 5, 7 and 4 (its runtime-C
+    kernel)."""
+    from gsplat_tpu_torch.tools import workload as wl
+    quad = wl.form_of("packed_quad")
+    out = {f"f32 C={C}": comp.forward_occupancy(C, C) for C in (3, 5, 7, 9)}
+    out["packed_quad C=3"] = comp.forward_occupancy(
+        3, 3, quad._replace(with_ones=False))
+    out.update({f"packed_quad C={C}": comp.forward_occupancy(C, C - 1, quad)
+                for C in (5, 7, 4)})
+    return out
 
 
 def k2_occupancy(comp):
@@ -1614,6 +1670,7 @@ def main():
     # ---- 1. build ---------------------------------------------------------
     t0 = time.perf_counter()
     report = _kernels.build()
+    PTXAS["report"] = report
     _kernels.lib()
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc sm_90a, "
           f"{len(_kernels.SOURCES)} sources in parallel)")
@@ -1622,6 +1679,10 @@ def main():
                 or line.startswith("==")):
             print("  ptxas:", line.strip())
     print(f"K2 CTAs per SM: {json.dumps(k2_occupancy(comp))}")
+    print(f"K1 CTAs per SM: {json.dumps(k1_occupancy(comp))}; ptxas at "
+          "C = 3, 5, 7 (f32, quad, packed, packed quad): " + "; ".join(
+              f"C={C} form {b}: {k1_ptxas(C, b)}" for C in (3, 5, 7)
+              for b in ((0, 1, 2, 3) if C == 3 else (0, 1, 6, 7))))
     tile16 = start_tile16()
 
     # ---- 2. scene, binning and K1's inputs (tools.workload) ----------------
@@ -1679,6 +1740,8 @@ def main():
     check(sum(over.values()) == 0 and nc_diff == 0,
           "K1: kernel disagrees with its plain version")
     check(bool(torch.isfinite(packed_k).all()), "K1: non-finite output")
+    print(f"K1 at C = {C}: {comp.forward_occupancy(C, C)} CTAs per SM, "
+          f"{k1_ptxas(C, 0)}")
 
     # K1 built with the other --fmad setting: what the main build's choice
     # costs or saves, and how far the other build strays from the plain
@@ -1851,7 +1914,7 @@ def main():
     form_kernel_rows = phase_form_kernels(torch, card, w)
     form_launches = phase_form_paths(torch, np, card, w)
 
-    # ---- 12. (g) K2 at 16x16 tiles ------------------------------------------
+    # ---- 12. (g) K1 and K2 at 16x16 tiles ----------------------------------
     phase_tile16(card, tile16)
 
     # bounds: each input read once, each output written once

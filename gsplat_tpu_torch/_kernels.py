@@ -83,10 +83,16 @@ SIGNATURES = {
                                        _I, _I, _I, _I, _VP, _VP, _VP, _VP),
     # C, Cg, tile_x, tile_y: CTAs per SM of the f32 form's kernel
     "gsplat_composite_backward_occupancy": (_I, _I, _I, _I),
+    # C, tile_x, tile_y: CTAs per SM of K1's f32 form
+    "gsplat_composite_forward_occupancy": (_I, _I, _I),
+    # form, C, Cg, tile_x, tile_y: the same for another form of K1
+    "gsplat_composite_forward_form_occupancy": (_I, _I, _I, _I, _I),
     # form, C, Cg, tile_x, tile_y: the same for another form
     "gsplat_composite_backward_form_occupancy": (_I, _I, _I, _I, _I),
-    # vals, sids, perm (or null), I, R, num_segments, out, stream
-    "gsplat_segment_sum": (_VP, _VP, _VP, _I, _I, _I, _VP, _VP),
+    # vals, sids, perm (or null), I, R, num_segments, scratch, out, stream
+    "gsplat_segment_sum": (_VP, _VP, _VP, _I, _I, _I, _VP, _VP, _VP),
+    # num_segments: the int32 words of gsplat_segment_sum's scratch
+    "gsplat_segment_sum_scratch": (_I,),
     # variant, then gsplat_composite_forward's arguments
     "gsplat_probe_forward": (_I, _VP, _I, _I, _VP, _VP, _VP, _I, _I, _I, _I,
                              _VP, _VP),

@@ -141,21 +141,12 @@
 
 namespace {
 
-constexpr int kPix = 4;            // pixels a thread owns
-constexpr int kMaxBwdThreads = kMaxThreads / kPix;
+// The warp map (kPix, kBlockX x kBlockY, warp_blocks) and the per-warp cull
+// (warps_that_may_composite) are composite_common.cuh's, K1's too.
+constexpr int kMaxBwdThreads = kMaxWalkThreads;
 constexpr int kMaxBwdWarps = kMaxBwdThreads / 32;
 constexpr int kBwdBatch = 128;     // instances staged per round, at most
 constexpr int kMaskWords = kBwdBatch / 32;
-constexpr size_t kMaxSmem = 232448;  // the H100's opt-in shared memory a block
-constexpr unsigned kFull = 0xffffffffu;
-// A warp's pixels: a kBlockX x kBlockY block (its lanes four to a row, each
-// on kPix consecutive pixels) where the tile divides into such blocks.
-constexpr int kBlockX = 4 * kPix;
-constexpr int kBlockY = 32 / 4;
-
-__device__ __forceinline__ bool warp_blocks(int tile_x, int tile_y) {
-  return tile_x % kBlockX == 0 && tile_y % kBlockY == 0;
-}
 
 // In the order of probes.BWD_VARIANTS (P2's variant index).
 enum BwdVariant {
@@ -203,72 +194,6 @@ __device__ __forceinline__ float warp_sum8(const float (&v)[8], int lane) {
   c += __shfl_xor_sync(kFull, c, 2);
   c += __shfl_xor_sync(kFull, c, 1);
   return c;
-}
-
-// The least of q(x, y) = a x^2 + 2 b x y + c y^2 (positive definite) over the
-// box [xl, xh] x [yl, yh]: 0 where the box holds the origin, else the least
-// of the four edges' minima (q is convex).
-__device__ __forceinline__ float quad_min_box(float a, float b, float c,
-                                              float xl, float xh, float yl,
-                                              float yh) {
-  if (xl <= 0.f && xh >= 0.f && yl <= 0.f && yh >= 0.f) return 0.f;
-  float m = INFINITY;
-#pragma unroll
-  for (int e = 0; e < 2; ++e) {
-    const float y = e ? yh : yl;
-    const float x = fminf(fmaxf(-b * y / a, xl), xh);
-    m = fminf(m, a * x * x + 2.f * b * x * y + c * y * y);
-    const float x2 = e ? xh : xl;
-    const float y2 = fminf(fmaxf(-b * x2 / c, yl), yh);
-    m = fminf(m, a * x2 * x2 + 2.f * b * x2 * y2 + c * y2 * y2);
-  }
-  return m;
-}
-
-// Bit w set where warp w's pixels may composite a gaussian of mean (mx, my),
-// conic (a, b, c) and opacity op in the tile at (ox, oy): every warp's bit
-// unless the gaussian's power, -q/2 of the offset to the nearest pixel of
-// the warp's box, stays below the alpha >= 1/255 threshold -ln(255 op) by a
-// margin of 0.05 plus 1e-5 of the terms' magnitude (K1's power is that
-// exact value up to rounding; the quad form's cancellation is within the
-// second part).  A conic that is not positive definite, or values that are
-// not finite, keep every bit.
-__device__ __forceinline__ unsigned warps_that_may_composite(
-    float mx, float my, float a, float b, float c, float op, int ox, int oy,
-    int tile_x, int tile_y, int npix, int nwarps) {
-  const unsigned all = (1u << nwarps) - 1u;
-  if (!(a > 0.f && c > 0.f && a * c - b * b > 0.f && isfinite(mx) &&
-        isfinite(my) && isfinite(a) && isfinite(b) && isfinite(c))) {
-    return all;
-  }
-  if (!(op > 0.f)) return op <= 0.f ? 0u : all;  // op <= 0 never passes
-  const float xr = mx - static_cast<float>(ox);
-  const float yr = my - static_cast<float>(oy);
-  const float span = fabsf(xr) + fabsf(yr) + 2.f * (tile_x + tile_y);
-  const float limit = 2.f * (logf(255.f * op) + 0.05f +
-                             1e-5f * (a + fabsf(b) + c) * span * span);
-  const bool blocks = warp_blocks(tile_x, tile_y);
-  unsigned may = 0u;
-  for (int w = 0; w < nwarps; ++w) {
-    // the warp's pixels' box (tile-local), as the kernel lays them out
-    int x0, x1, y0, y1;
-    if (blocks) {
-      x0 = w % (tile_x / kBlockX) * kBlockX;
-      y0 = w / (tile_x / kBlockX) * kBlockY;
-      x1 = x0 + kBlockX - 1;
-      y1 = y0 + kBlockY - 1;
-    } else {
-      const int p0 = w * 32 * kPix;
-      const int p1 = min(p0 + 32 * kPix, npix) - 1;
-      y0 = p0 / tile_x;
-      y1 = p1 / tile_x;
-      x0 = y0 == y1 ? p0 - y0 * tile_x : 0;
-      x1 = y0 == y1 ? p1 - y1 * tile_x : tile_x - 1;
-    }
-    const float q = quad_min_box(a, b, c, xr - x1, xr - x0, yr - y1, yr - y0);
-    if (!(q > limit)) may |= 1u << w;
-  }
-  return may;
 }
 
 // CT > 0: compile-time channel count, d_out in registers.
@@ -325,7 +250,7 @@ composite_backward_kernel(const float* __restrict__ table, int P, int C,
 
   // this thread's pixels pix0 .. pix0 + 3 of the tile, all inside it or
   // none (npix % 4 == 0): in the warp's block, or 128 a warp in row-major
-  // order where the tile does not divide into blocks
+  // order where the tile does not divide into blocks (thread_pixel0's map)
   int pix0 = tid * kPix;
   if (warp_blocks(tile_x, tile_y)) {
     const int bpr = tile_x / kBlockX;
@@ -627,11 +552,6 @@ composite_backward_kernel(const float* __restrict__ table, int P, int C,
   }
 }
 
-// The threads of a tile of npix pixels: kPix a thread, in whole warps.
-inline int bwd_threads(int npix) {
-  return (npix + 32 * kPix - 1) / (32 * kPix) * 32;
-}
-
 size_t smem_bytes(int C, int Cg, int nwarps, int kb, bool quad) {
   const size_t row = kGeo + C;
   const size_t nout = kGeo + Cg;
@@ -654,7 +574,7 @@ int launch_backward(const float* table, int P, int C, int Cg,
                     const float* packed, const float* d_packed, float* d_inst,
                     cudaStream_t stream) {
   constexpr bool quad = (F & kFormQuad) != 0;
-  const int threads = bwd_threads(tile_x * tile_y);
+  const int threads = walk_threads(tile_x * tile_y);
   const int kb = bwd_batch(C, Cg, threads / 32, quad);
   const size_t smem = smem_bytes(C, Cg, threads / 32, kb, quad);
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
@@ -674,7 +594,7 @@ int launch_backward(const float* table, int P, int C, int Cg,
 template <int CT, int V, int F = 0>
 int backward_occupancy(int C, int Cg, int tile_x, int tile_y) {
   constexpr bool quad = (F & kFormQuad) != 0;
-  const int threads = bwd_threads(tile_x * tile_y);
+  const int threads = walk_threads(tile_x * tile_y);
   const size_t smem = smem_bytes(C, Cg, threads / 32,
                                  bwd_batch(C, Cg, threads / 32, quad), quad);
   if (smem > 48 * 1024 &&

@@ -1,7 +1,7 @@
 // K1 — forward alpha composite: the C entry, which launches the kernel of
 // composite_fwd.cuh (its comments say what it computes, its design and its
 // bound) in its production form, kFwdBase, compiled for C = 1..8 and for a
-// runtime C.
+// runtime C; and the CTAs an SM holds of each.
 #include "composite_fwd.cuh"
 
 extern "C" int gsplat_composite_forward(const void* table, int P, int C,
@@ -32,4 +32,24 @@ extern "C" int gsplat_composite_forward(const void* table, int P, int C,
     default: GSPLAT_K1_LAUNCH(0);
   }
 #undef GSPLAT_K1_LAUNCH
+}
+
+// CTAs of gsplat_composite_forward's kernel an SM holds at once for C and
+// the tile shape (0 on an error).
+extern "C" int gsplat_composite_forward_occupancy(int C, int tile_x,
+                                                  int tile_y) {
+#define GSPLAT_K1_OCC(CT) \
+  return forward_occupancy<CT, kFwdBase>(C, tile_x, tile_y)
+  switch (C) {
+    case 1: GSPLAT_K1_OCC(1);
+    case 2: GSPLAT_K1_OCC(2);
+    case 3: GSPLAT_K1_OCC(3);
+    case 4: GSPLAT_K1_OCC(4);
+    case 5: GSPLAT_K1_OCC(5);
+    case 6: GSPLAT_K1_OCC(6);
+    case 7: GSPLAT_K1_OCC(7);
+    case 8: GSPLAT_K1_OCC(8);
+    default: GSPLAT_K1_OCC(0);
+  }
+#undef GSPLAT_K1_OCC
 }

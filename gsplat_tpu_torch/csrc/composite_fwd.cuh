@@ -21,18 +21,38 @@
 // composited channels, then T_final, then n_contrib (the training slice's
 // backward kernel reads it).
 //
-// Design.  One thread per tile pixel (TILE_X * TILE_Y threads: 1024 at the
-// default 32x32, 256 at 16x16).  The CTA stages batches of kFwdBatch
-// instances in shared memory: threads read the batch's gaussian ids, then the
-// per-gaussian rows (mean2d, conic, opacity, C features) straight from the
-// [P, 6+C] table, the way renderCUDA stages its batches, so the [I, 6+C]
-// gathered table the TPU path builds never exists.  Ids >= P are the pad
-// sentinel and contribute nothing.  Every pixel then reads each staged row
-// as a shared-memory broadcast.  A __syncthreads_count at each batch ends the
-// tile once all its pixels are done.  The TPU kernel's cross-tile DMA
-// prefetch (it relied on the sequential TPU grid) and its log-step scans
-// (there for 128-wide vector tiles) are dropped: blocks run in parallel here
-// and each pixel runs the recurrence serially, like renderCUDA.
+// Design.  K2's warp map and cull (composite_common.cuh), so the two
+// kernels walk one layout.  A thread owns kPix = 4 consecutive pixels of a
+// tile row, and a warp a 16x8 block of them where the tile divides into such
+// blocks (32x32: 8 warps; 16x16: 2), else 128 pixels in row-major order.  A
+// CTA runs at most kFwdCtaWarps = 4 of a tile's warps (fwd_split: two CTAs
+// of 128 threads at 32x32, one of 64 at 16x16), each CTA walking the tile's
+// whole instance list for its own warps, so that a heavy tile's walk runs on
+// two SMs.  Each CTA stages
+// batches of kFwdBatch instances in shared memory as K2 does: the rows
+// straight from the [P, 6+C] table through gauss_id (the fused gather: the
+// [I, 6+C] gathered table the TPU path builds never exists; kStageLoads of a
+// thread's loads in flight together), the quad form's coefficients and, per
+// instance, the bits of its warps whose box of pixels the gaussian may reach
+// (warps_that_may_composite: a warp is left out only where the least
+// quadratic form over its box keeps the power under alpha's 1/255 threshold
+// by a margin far above the rounding of the power; the pad sentinel,
+// opacity 0, reaches none).  A warp takes the instances whose bit it has,
+// found 32 at a time by a ballot.  For each, each thread reads the staged row
+// once and computes power, alpha and both skip tests for its four pixels;
+// the warp votes once and goes on if none of its 128 pixels passes;
+// otherwise each thread takes its four pixels' steps straight-line, each
+// pixel's sums and state selected where it does not composite, so the four
+// chains run side by side.  A pixel's done state is the sign of its
+// transmittance (negative once done; the output is |T|), so there is no
+// per-pair sentinel branch and no done flag.  A warp stops once its 128
+// pixels are done, and the CTA at the batch barrier's __syncthreads_count
+// once all of its pixels are.  Each pixel's recurrence runs front to back,
+// one instance after another, with the expressions and the operation order
+// of the one-thread-per-pixel kernel it replaces (built with --fmad=false),
+// so the output is that kernel's bit for bit.  The TPU kernel's cross-tile
+// DMA prefetch (it relied on the sequential TPU grid) and its log-step scans
+// (there for 128-wide vector tiles) are dropped.
 //
 // Bound on the H100.  Operations: 17 fp32 operations (one of them the
 // exp2) for every (pixel, instance) pair up to the pixel's exit, 3 more
@@ -40,14 +60,15 @@
 // one.  At the 1080p asset most tested pairs are skipped (about one in six
 // is composited), so the skip test dominates.  The output write
 // (TILE_PIX (C+2) floats per tile) and the instance reads are far below the
-// operation time at the render path's instance counts.  So the kernel is
-// compute-bound on the per-pair arithmetic and the MUFU exp2 rate; the early
-// exit is what keeps the pair count down.  Accumulators stay in registers
-// for C <= 8 (compile-time C; the render path has C = 5 + num_class, or 3
-// under render_only); __launch_bounds__(1024) caps a thread at 64 registers.
-// Larger C is correct but slow: it accumulates straight into the output row
-// in global memory (each pixel owns its own output words, so there are no
-// races).
+// operation time at the render path's instance counts.  What holds the
+// kernel back is the serial walk of the heaviest tiles (an H100 runs the
+// heaviest 1080p tile alone for about half the kernel's time): the cull
+// shortens a warp's walk, the split runs a tile on two SMs, the staged
+// loads in flight together and the straight-line steps shorten the time an
+// instance takes.  Accumulators stay in registers for a compile-time C (the
+// render path has C = 5 + num_class, or 3 under render_only); a runtime C
+// accumulates straight into the output row in global memory (each pixel owns
+// its own output words, so there are no races): correct, slow.
 //
 // The forms (template parameter F, composite_common.cuh's Form bits), the
 // Pallas kernel's compile-time mxu_power and fp:
@@ -71,8 +92,8 @@
 // changes.  Each writes K1's [T, C+2, TILE_PIX] layout; what each row holds
 // is defined by the plain version (gsplat_tpu_torch/tools/probes.py::
 // probe_forward_plain and probe_load_plain):
-//   no_cond          no early exit: the CTA's __syncthreads_count(done) vote
-//                    and the per-pixel break are gone; a finished pixel keeps
+//   no_cond          no early exit: the CTA's __syncthreads_count vote and
+//                    the warp's stop are gone, and a finished pixel keeps
 //                    testing and updating, with its update masked to zero
 //                    (the TPU's `where(~done)`).  Output equal to base.
 //   no_scan          the transmittance update T = T (1 - alpha) is removed:
@@ -93,12 +114,14 @@
 //                    transmittance recurrence and the C channels only (row
 //                    C+1 zero); every pixel walks its whole tile.
 //   trim_bookkeeping base's output with less bookkeeping: no branch on the
-//                    pad sentinel (its staged row is zeros, whose alpha fails
-//                    the 1/255 test) and the done flag kept as the sign of T.
+//                    pad sentinel and the done flag kept as the sign of T.
+//                    Base itself keeps both so now (the sentinel's cull mask
+//                    is 0), and the variant compiles to base's kernel.
 //   compute_resident base with its staging taken away: each tile's first
-//                    batch is staged once, and every later batch computes on
-//                    those resident rows (instance k of batch b is the first
-//                    batch's k-th), with base's termination and exit (P3).
+//                    batch is staged once (rows, masks), and every later
+//                    batch computes on those resident rows (instance k of
+//                    batch b is the first batch's k-th), with base's
+//                    termination and exit (P3).
 // Every knockout still writes an output that depends on what it kept, so
 // nvcc cannot delete the work it measures.
 #pragma once
@@ -109,8 +132,22 @@
 
 namespace {
 
-constexpr int kFwdBatch = 256;     // instances staged per round
+constexpr int kFwdBatch = 128;     // instances staged per round
+constexpr int kFwdCtaWarps = 4;    // warps of a CTA, at most
+constexpr int kFwdCtaThreads = 32 * kFwdCtaWarps;
+constexpr int kStageLoads = 8;     // staged floats a thread loads at a time
 constexpr float kTEps = 1e-4f;
+
+// The CTAs a tile of npix pixels is split over, kFwdCtaWarps of its warps
+// each (the last CTA's warps past the tile, if any, own no pixel), and the
+// threads of each.
+__host__ __device__ inline int fwd_split(int npix) {
+  return (walk_threads(npix) / 32 + kFwdCtaWarps - 1) / kFwdCtaWarps;
+}
+inline int fwd_threads(int npix) {
+  const int threads = walk_threads(npix);
+  return threads < kFwdCtaThreads ? threads : kFwdCtaThreads;
+}
 
 // The first ten in the order of probes.FWD_VARIANTS (P1's variant index).
 enum FwdVariant {
@@ -128,43 +165,73 @@ enum FwdVariant {
   kNumFwdVariants
 };
 
-// Stages instances [b0, b0 + nb) of the tile's list that starts at `start`:
-// their gaussian ids into s_gid, then their [row] table rows into s_rows
-// (zeros for an id outside [0, P), the pad sentinel).  Ends on a barrier.
-__device__ __forceinline__ void stage_batch(const float* __restrict__ table,
-                                            int P, int row,
-                                            const int* __restrict__ gauss_id,
-                                            int start, int b0, int nb,
-                                            int npix, float* s_rows,
-                                            int* s_gid) {
-  const int tid = threadIdx.x;
-  for (int k = tid; k < nb; k += npix) s_gid[k] = gauss_id[start + b0 + k];
-  __syncthreads();
-  for (int e = tid; e < nb * row; e += npix) {
-    const int k = e / row;
-    const int col = e - k * row;
-    const int g = s_gid[k];
-    s_rows[e] = (g >= 0 && g < P)
-                    ? __ldg(table + static_cast<size_t>(g) * row + col)
-                    : 0.f;
+// Stages the nb instances at gid_b of a tile at (ox, oy) as K2 stages them
+// (composite_bwd.cuh, which spells the same loops out in its kernel): each
+// instance's [row] floats through its gaussian id into
+// s_rows (the fused gather: the table [P, trow] as it is, or, kPacked, its
+// cg bf16 pair features unpacked and the ones channel made where row > kGeo
+// + cg; zeros for an id outside [0, P), the pad sentinel), per instance the
+// bits of the nwarps warps from w0 that may composite it into s_may (0 for
+// the sentinel), and, kQuad, its quad-power coefficients into s_coef.  The
+// geometry for the mask and the coefficients is read again from the table,
+// so no barrier separates the two loops; the caller's barrier ends the
+// staging.
+template <bool kPacked, bool kQuad>
+__device__ __forceinline__ void stage_instances(
+    const float* __restrict__ table, int P, int row, int trow, int cg,
+    const int* __restrict__ gid_b, int nb, int tid, int nthreads, int ox,
+    int oy, int tile_x, int tile_y, int npix, int w0, int nwarps,
+    float* s_rows, unsigned* s_may, float* s_coef) {
+  // kStageLoads elements a thread at a time, all loaded before any is
+  // stored, so that their loads are in flight together
+  const int n = nb * row;
+  for (int e0 = tid; e0 < n; e0 += kStageLoads * nthreads) {
+    float v[kStageLoads];
+#pragma unroll
+    for (int j = 0; j < kStageLoads; ++j) {
+      const int e = e0 + j * nthreads;
+      const int k = min(e, n - 1) / row;
+      const int col = min(e, n - 1) - k * row;
+      const int g = __ldg(gid_b + k);
+      if constexpr (kPacked) {
+        v[j] = packed_value(table, P, g, cg, col);
+      } else {
+        v[j] = (g >= 0 && g < P)
+                   ? __ldg(table + static_cast<size_t>(g) * row + col)
+                   : 0.f;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kStageLoads; ++j) {
+      if (e0 + j * nthreads < n) s_rows[e0 + j * nthreads] = v[j];
+    }
   }
-  __syncthreads();
+  for (int k = tid; k < nb; k += nthreads) {
+    const int g = __ldg(gid_b + k);
+    const bool real = g >= 0 && g < P;
+    // the geometry just staged, read again from the table
+    float geo[kGeo];
+#pragma unroll
+    for (int j = 0; j < kGeo; ++j) {
+      geo[j] = real ? __ldg(table + static_cast<size_t>(g) * trow + j)
+                    : 0.f;
+    }
+    s_may[k] = !real ? 0u
+                     : warps_that_may_composite(geo[0], geo[1], geo[2], geo[3],
+                                                geo[4], geo[5], ox, oy, tile_x,
+                                                tile_y, npix, nwarps, w0);
+    if constexpr (kQuad) {
+      quad_coefficients(geo, static_cast<float>(ox), static_cast<float>(oy),
+                        s_coef + k * kCoef);
+    }
+  }
 }
 
-// stage_batch from the packed table [P, 6 + ceil(cg/2)]: the staged rows of
-// kGeo + C floats are what stage_batch stages from the f32 table.
-__device__ __forceinline__ void stage_batch_packed(
-    const float* __restrict__ table, int P, int row, int cg,
-    const int* __restrict__ gauss_id, int start, int b0, int nb, int npix,
-    float* s_rows, int* s_gid) {
-  const int tid = threadIdx.x;
-  for (int k = tid; k < nb; k += npix) s_gid[k] = gauss_id[start + b0 + k];
-  __syncthreads();
-  for (int e = tid; e < nb * row; e += npix) {
-    const int k = e / row;
-    s_rows[e] = packed_value(table, P, s_gid[k], cg, e - k * row);
-  }
-  __syncthreads();
+// Bytes of shared memory a CTA of K1 uses: a batch's rows, masks and (quad)
+// coefficients.
+inline size_t fwd_smem_bytes(int C, bool quad) {
+  return static_cast<size_t>(kFwdBatch) *
+         ((kGeo + C + (quad ? kCoef : 0)) * sizeof(float) + sizeof(unsigned));
 }
 
 // The kernel body.  CT > 0: compile-time channel count, accumulators in
@@ -176,7 +243,7 @@ __device__ __forceinline__ void composite_forward_body(
     const int* __restrict__ gauss_id, const int* __restrict__ starts,
     const int* __restrict__ counts, int grid_x, int tile_x, int tile_y,
     float* __restrict__ out) {
-  // what each variant keeps
+  // what each variant keeps (trim_bookkeeping is base)
   constexpr bool kQuad = (F & kFormQuad) != 0;
   constexpr bool kPacked = (F & kFormPacked) != 0;
   constexpr bool kStrip = V == kStripped || V == kNoExp;
@@ -185,189 +252,226 @@ __device__ __forceinline__ void composite_forward_body(
   constexpr bool kUpdateT = V != kNoScan && V != kAlphaOnly;
   constexpr bool kOneChannel = V == kNoMatmul || V == kAlphaOnly;
   constexpr bool kLast = V != kNoMinmax && V != kAlphaOnly && !kStrip;
-  constexpr bool kSentinelBranch = V != kTrimBookkeeping;
   constexpr bool kStageEach = V != kComputeResident;
   constexpr float kPowerCut = kQuad ? kQuadPowerCut : 0.f;
 
   extern __shared__ float smem[];
   const int nc = CT > 0 ? CT : C;
   const int row = kGeo + nc;
-  float* s_rows = smem;                                     // [kFwdBatch][row]
-  float* s_coef = s_rows + kFwdBatch * row;  // [kFwdBatch][kCoef], quad only
-  int* s_gid = reinterpret_cast<int*>(s_coef + (kQuad ? kFwdBatch * kCoef : 0));
+  // the stored features and the table's row: packed, Cg features as
+  // ceil(Cg/2) pair words, the ones channel (kFormOnes) made in staging
+  const int cg = nc - ((F & kFormOnes) ? 1 : 0);
+  const int trow = kPacked ? kGeo + (cg + 1) / 2 : row;
+  float* s_rows = smem;                            // [kFwdBatch][row]
+  float* s_coef = s_rows + kFwdBatch * row;   // [kFwdBatch][kCoef], quad only
+  unsigned* s_may = reinterpret_cast<unsigned*>(
+      s_coef + (kQuad ? kFwdBatch * kCoef : 0));              // [kFwdBatch]
 
-  const int t = blockIdx.x;
+  // The tile's warps are split over `split` CTAs (fwd_split): this CTA runs
+  // warps w0 .. w0 + nwarps - 1 of the tile's warp map.
   const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nthreads = blockDim.x;
+  const int nwarps = nthreads >> 5;
   const int npix = tile_x * tile_y;
+  const int split = fwd_split(npix);
+  const int t = blockIdx.x / split;
+  const int w0 = (blockIdx.x - t * split) * nwarps;
   const int ox = (t % grid_x) * tile_x;
   const int oy = (t / grid_x) * tile_y;
-  const float px = static_cast<float>(ox + tid % tile_x);
-  const float py = static_cast<float>(oy + tid / tile_x);
-  // the tile-local basis of quad_power
-  const float qx = static_cast<float>(tid % tile_x);
-  const float qy = static_cast<float>(tid / tile_x);
-  const float qxx = qx * qx;
-  const float qyy = qy * qy;
-  const float qxy = qx * qy;
   const int start = starts[t];
   const int count = counts[t];
   float* out_t = out + static_cast<size_t>(t) * (nc + 2) * npix;
 
+  // this thread's pixels pix0 .. pix0 + 3, in one row of the tile (the host
+  // checks tile_x % kPix == 0), all inside it or none
+  const int pix0 = thread_pixel0(tile_x, tile_y, w0 * 32 + tid);
+  const bool inside = pix0 < npix;
+  const int lx = pix0 % tile_x;
+  const int ly = pix0 / tile_x;
+  // pixel centres and the tile-local basis of quad_power (pixel i's qx, qx^2
+  // and qx qy, exact small integers, are formed where they are used: kept
+  // for four pixels they made the quad forms spill)
+  const float py = static_cast<float>(oy + ly);
+  const float qx0 = static_cast<float>(lx);
+  const float qy = static_cast<float>(ly);
+  const float qyy = qy * qy;
+  float px[kPix];
+#pragma unroll
+  for (int i = 0; i < kPix; ++i) px[i] = static_cast<float>(ox + lx + i);
+
   constexpr int kAcc = kOneChannel ? 1 : (CT > 0 ? CT : 1);
   constexpr bool kGlobalAcc = CT == 0 && !kOneChannel;
-  float acc[kAcc];
+  float acc[kPix][kAcc];
+  float T[kPix];  // negative once the pixel is done (its |T| is T_final)
+  int last[kPix];
 #pragma unroll
-  for (int c = 0; c < kAcc; ++c) acc[c] = 0.f;
-  if (kGlobalAcc) {
-    for (int c = 0; c < nc; ++c) out_t[c * npix + tid] = 0.f;
+  for (int i = 0; i < kPix; ++i) {
+#pragma unroll
+    for (int c = 0; c < kAcc; ++c) acc[i][c] = 0.f;
+    T[i] = inside ? 1.f : -1.f;  // a pixel past the tile is done from the start
+    last[i] = 0;
+  }
+  if (kGlobalAcc && inside) {
+    for (int c = 0; c < nc; ++c) {
+#pragma unroll
+      for (int i = 0; i < kPix; ++i) out_t[c * npix + pix0 + i] = 0.f;
+    }
   }
 
-  float T = 1.f;  // trim_bookkeeping: negative once the pixel is done
-  int last = 0;
-  int done = 0;
-
+  bool warp_done = false;  // kExit: the warp's 128 pixels are done
   for (int b0 = 0; b0 < count; b0 += kFwdBatch) {
     // Also the barrier that keeps the previous batch's shared rows alive
     // until every thread has finished reading them.
     if (kExit) {
-      const int finished = V == kTrimBookkeeping ? (T < 0.f) : done;
-      if (__syncthreads_count(finished) == npix) break;
+      bool fin = true;
+#pragma unroll
+      for (int i = 0; i < kPix; ++i) fin = fin && T[i] < 0.f;
+      if (__syncthreads_count(fin) == nthreads) break;
     } else {
       __syncthreads();
     }
     const int nb = min(kFwdBatch, count - b0);
     if (kStageEach || b0 == 0) {
-      if constexpr (kPacked) {
-        stage_batch_packed(table, P, row, nc - ((F & kFormOnes) ? 1 : 0),
-                           gauss_id, start, b0, nb, npix, s_rows, s_gid);
-      } else {
-        stage_batch(table, P, row, gauss_id, start, b0, nb, npix, s_rows,
-                    s_gid);
-      }
+      stage_instances<kPacked, kQuad>(
+          table, P, row, trow, cg, gauss_id + start + b0, nb, tid, nthreads,
+          ox, oy, tile_x, tile_y, npix, w0, nwarps, s_rows, s_may, s_coef);
     }
-    if constexpr (kQuad) {
-      for (int k = tid; k < nb; k += npix) {
-        quad_coefficients(s_rows + k * row, static_cast<float>(ox),
-                          static_cast<float>(oy), s_coef + k * kCoef);
-      }
-      __syncthreads();
-    }
-    if (kExit) {
-      if (V == kTrimBookkeeping ? (T < 0.f) : (done != 0)) continue;
-    }
-    for (int k = 0; k < nb; ++k) {
-      if (kSentinelBranch) {
-        const int g = s_gid[k];
-        if (g < 0 || g >= P) continue;  // pad sentinel
-      }
-      const float* r = s_rows + k * row;
-      float power;
-      if (kQuad) {
-        power = quad_power(s_coef + k * kCoef, qx, qy, qxx, qyy, qxy);
-      } else {
-        const float dx = r[0] - px;
+    __syncthreads();
+    for (int k0 = 0; k0 < nb && !(kExit && warp_done); k0 += 32) {
+      // the next 32 instances this warp walks: those whose cull bit it has
+      // (an instance no pixel of the warp can composite, the pad sentinel
+      // among them, has it clear)
+      unsigned todo = __ballot_sync(
+          kFull, k0 + lane < nb && ((s_may[k0 + lane] >> warp) & 1u));
+      while (todo) {
+        const int k = k0 + __ffs(todo) - 1;
+        todo &= todo - 1;
+        const float* r = s_rows + k * row;
         const float dy = r[1] - py;
-        power = -0.5f * (r[2] * dx * dx + r[4] * dy * dy) - r[3] * dx * dy;
-      }
-      const float G = V == kNoExp ? 1.f + power : exp2f(power * kLog2e);
-      const float alpha = fminf(kAlphaMax, r[5] * G);
-      if (!(power <= kPowerCut) || !(alpha >= kAlphaMin)) continue;
-      if (V == kAlphaOnly) {
-        acc[0] += alpha;
-        continue;
-      }
-      const float Tv = V == kTrimBookkeeping ? fabsf(T) : T;
-      const float test_T = Tv * (1.f - alpha);
-      float live = 1.f;  // no_cond: 0 once the pixel is done
-      if (kTerminate) {
-        if (V == kNoCond) {
-          if (done || test_T < kTEps) {
-            done = 1;
-            live = 0.f;
-          }
-        } else if (test_T < kTEps) {
-          if (V == kTrimBookkeeping) {
-            T = -Tv;
-          } else {
-            done = 1;
-          }
-          break;
-        }
-      }
-      const float w = V == kNoCond ? alpha * Tv * live : alpha * Tv;
-      if (kOneChannel) {
-        acc[0] += w;
-      } else if (!kGlobalAcc) {
+        float alpha[kPix];
+        bool pass[kPix];
+        bool any = false;
 #pragma unroll
-        for (int c = 0; c < kAcc; ++c) acc[c] += w * r[kGeo + c];
-      } else {
-        for (int c = 0; c < nc; ++c) out_t[c * npix + tid] += w * r[kGeo + c];
-      }
-      if (kUpdateT) {
-        if (V == kNoCond) {
-          T = live != 0.f ? test_T : T;
-        } else {
-          T = test_T;
+        for (int i = 0; i < kPix; ++i) {
+          float power;
+          if constexpr (kQuad) {
+            const float qx = qx0 + static_cast<float>(i);
+            power = quad_power(s_coef + k * kCoef, qx, qy, qx * qx, qyy,
+                               qx * qy);
+          } else {
+            const float dx = r[0] - px[i];
+            power = -0.5f * (r[2] * dx * dx + r[4] * dy * dy) - r[3] * dx * dy;
+          }
+          const float G = V == kNoExp ? 1.f + power : exp2f(power * kLog2e);
+          alpha[i] = fminf(kAlphaMax, r[5] * G);
+          pass[i] = power <= kPowerCut && alpha[i] >= kAlphaMin &&
+                    (kExit ? T[i] > 0.f : inside);
+          any = any || pass[i];
         }
-      }
-      if (kLast) {
-        if (V == kNoCond) {
-          last = live != 0.f ? b0 + k + 1 : last;
-        } else {
-          last = b0 + k + 1;
+        if (!__any_sync(kFull, any)) continue;
+        const int pos = b0 + k + 1;
+        // each pixel's step, straight-line: what it adds and keeps is
+        // selected where it does not composite (a select of the sum, not of
+        // the weight, so a pair it skips adds nothing whatever its features)
+#pragma unroll
+        for (int i = 0; i < kPix; ++i) {
+          if (V == kAlphaOnly) {
+            acc[i][0] = pass[i] ? acc[i][0] + alpha[i] : acc[i][0];
+            continue;
+          }
+          const float Tv = V == kNoCond ? fabsf(T[i]) : T[i];
+          const float test_T = Tv * (1.f - alpha[i]);
+          const bool was = T[i] > 0.f;
+          const bool stop = kTerminate && pass[i] && was && test_T < kTEps;
+          // composited: base's passing pair that does not stop the pixel;
+          // no_cond adds every passing pair, its weight 0 once done
+          const bool add = pass[i] && (V == kNoCond || !stop);
+          const bool live = V == kNoCond ? was && !stop : true;
+          const float w = V == kNoCond ? alpha[i] * Tv * (live ? 1.f : 0.f)
+                                       : alpha[i] * Tv;
+          if (kOneChannel) {
+            acc[i][0] = add ? acc[i][0] + w : acc[i][0];
+          } else if (!kGlobalAcc) {
+#pragma unroll
+            for (int c = 0; c < kAcc; ++c) {
+              const float term = w * r[kGeo + c];
+              acc[i][c] = add ? acc[i][c] + term : acc[i][c];
+            }
+          } else if (add) {
+            for (int c = 0; c < nc; ++c) {
+              out_t[c * npix + pix0 + i] += w * r[kGeo + c];
+            }
+          }
+          const bool step = add && live;  // the pixel takes this instance
+          if (kUpdateT) T[i] = step ? test_T : T[i];
+          if (kTerminate) T[i] = stop ? -T[i] : T[i];
+          if (kLast) last[i] = step ? pos : last[i];
+        }
+        if (kExit) {
+          bool alive = false;
+#pragma unroll
+          for (int i = 0; i < kPix; ++i) alive = alive || T[i] > 0.f;
+          if (!__any_sync(kFull, alive)) {
+            warp_done = true;
+            break;
+          }
         }
       }
     }
   }
 
+  if (!inside) return;
+  // four consecutive words per row, 16-byte aligned (npix and pix0 are
+  // multiples of 4)
+  auto put = [&](int rowi, float a0, float a1, float a2, float a3) {
+    *reinterpret_cast<float4*>(out_t + rowi * npix + pix0) =
+        make_float4(a0, a1, a2, a3);
+  };
+  static_assert(kPix == 4, "the output stores are float4");
   if (kOneChannel) {
-    out_t[tid] = acc[0];
-    for (int c = 1; c < nc; ++c) out_t[c * npix + tid] = 0.f;
+    put(0, acc[0][0], acc[1][0], acc[2][0], acc[3][0]);
+    for (int c = 1; c < nc; ++c) put(c, 0.f, 0.f, 0.f, 0.f);
   } else if (!kGlobalAcc) {
 #pragma unroll
-    for (int c = 0; c < kAcc; ++c) out_t[c * npix + tid] = acc[c];
+    for (int c = 0; c < kAcc; ++c) {
+      put(c, acc[0][c], acc[1][c], acc[2][c], acc[3][c]);
+    }
   }
-  out_t[nc * npix + tid] = V == kTrimBookkeeping ? fabsf(T) : T;
-  out_t[(nc + 1) * npix + tid] = static_cast<float>(last);
+  put(nc, fabsf(T[0]), fabsf(T[1]), fabsf(T[2]), fabsf(T[3]));
+  put(nc + 1, static_cast<float>(last[0]), static_cast<float>(last[1]),
+      static_cast<float>(last[2]), static_cast<float>(last[3]));
 }
 
-#define GSPLAT_K1_PARAMS                                                     \
-  const float* __restrict__ table, int P, int C,                             \
-      const int* __restrict__ gauss_id, const int* __restrict__ starts,      \
-      const int* __restrict__ counts, int grid_x, int tile_x, int tile_y,    \
-      float* __restrict__ out
-#define GSPLAT_K1_ARGS \
-  table, P, C, gauss_id, starts, counts, grid_x, tile_x, tile_y, out
+// The CTAs an SM holds at once, per form, which sets the register budget
+// ptxas gets: 65,536 / (128 N) a thread.  Six leave 80 registers for the
+// 4 C accumulators of the compile-time C; the quad forms spilled at 80
+// (C = 7) and take five, 96 registers.
+template <int F>
+constexpr int kFwdMinBlocks = (F & kFormQuad) ? 5 : 6;
 
-// The f32 form (and the probes' variants of it).
 template <int CT, int V, int F = 0>
-__global__ void __launch_bounds__(kMaxThreads)
-composite_forward_kernel(GSPLAT_K1_PARAMS) {
-  composite_forward_body<CT, V, F>(GSPLAT_K1_ARGS);
+__global__ void __launch_bounds__(kFwdCtaThreads, kFwdMinBlocks<F>)
+composite_forward_kernel(const float* __restrict__ table, int P, int C,
+                         const int* __restrict__ gauss_id,
+                         const int* __restrict__ starts,
+                         const int* __restrict__ counts, int grid_x,
+                         int tile_x, int tile_y, float* __restrict__ out) {
+  composite_forward_body<CT, V, F>(table, P, C, gauss_id, starts, counts,
+                                   grid_x, tile_x, tile_y, out);
 }
 
-// The other forms ask for two CTAs of 1024 threads per SM, so at most 32
-// registers a thread: left free, ptxas gave the packed quad form 42 at
-// C = 7, one CTA per SM, and it ran 19% slower than the quad form (an
-// H100, PERF.md).  A kernel of its own, because a second bound on the f32
-// form's kernel changes its code.
-template <int CT, int V, int F>
-__global__ void __launch_bounds__(kMaxThreads, 2)
-composite_forward_form_kernel(GSPLAT_K1_PARAMS) {
-  composite_forward_body<CT, V, F>(GSPLAT_K1_ARGS);
-}
-
-#undef GSPLAT_K1_PARAMS
-#undef GSPLAT_K1_ARGS
-
-// The kernel entry of form F (only the one is instantiated).
-template <int CT, int V, int F>
-auto forward_kernel() {
-  if constexpr (F == 0) {
-    return composite_forward_kernel<CT, V, F>;
-  } else {
-    return composite_forward_form_kernel<CT, V, F>;
+// Checks what the kernel takes (cudaErrorInvalidValue otherwise): a tile of
+// at most kMaxThreads pixels in rows of whole kPix groups, and a batch whose
+// shared memory fits a block.
+inline int forward_shape_error(int C, int tile_x, int tile_y, bool quad) {
+  const int npix = tile_x * tile_y;
+  if (C < 1 || tile_x <= 0 || tile_y <= 0 || npix > kMaxThreads ||
+      tile_x % kPix != 0 || fwd_smem_bytes(C, quad) > kMaxSmem) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  return 0;
 }
 
 template <int CT, int V, int F = 0>
@@ -375,20 +479,40 @@ int launch_forward(const float* table, int P, int C, const int* gauss_id,
                    const int* starts, const int* counts, int num_tiles,
                    int grid_x, int tile_x, int tile_y, float* out,
                    cudaStream_t stream) {
-  const size_t smem =
-      static_cast<size_t>(kFwdBatch) * (kGeo + C) * sizeof(float) +
-      ((F & kFormQuad) ? kFwdBatch * kCoef * sizeof(float) : 0) +
-      kFwdBatch * sizeof(int);
-  const auto kernel = forward_kernel<CT, V, F>();
+  constexpr bool quad = (F & kFormQuad) != 0;
+  if (const int e = forward_shape_error(C, tile_x, tile_y, quad)) return e;
+  const size_t smem = fwd_smem_bytes(C, quad);
+  const auto kernel = composite_forward_kernel<CT, V, F>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  kernel<<<num_tiles, tile_x * tile_y, smem, stream>>>(
+  kernel<<<num_tiles * fwd_split(tile_x * tile_y),
+           fwd_threads(tile_x * tile_y), smem, stream>>>(
       table, P, C, gauss_id, starts, counts, grid_x, tile_x, tile_y, out);
   return static_cast<int>(cudaGetLastError());
+}
+
+// CTAs of the kernel an SM holds at once for this shape (0 on an error).
+template <int CT, int V, int F = 0>
+int forward_occupancy(int C, int tile_x, int tile_y) {
+  constexpr bool quad = (F & kFormQuad) != 0;
+  if (forward_shape_error(C, tile_x, tile_y, quad)) return 0;
+  const size_t smem = fwd_smem_bytes(C, quad);
+  const auto kernel = composite_forward_kernel<CT, V, F>;
+  if (smem > 48 * 1024 &&
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem)) != cudaSuccess) {
+    return 0;
+  }
+  int n = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, kernel, fwd_threads(tile_x * tile_y), smem) != cudaSuccess) {
+    return 0;
+  }
+  return n;
 }
 
 }  // namespace

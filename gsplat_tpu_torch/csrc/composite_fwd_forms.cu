@@ -10,7 +10,8 @@
 // render_only: packed without ones), 5 (rgb, depth, ones) and 7 (with two
 // segment channels), each with the ones channel when packed; every other C
 // takes the runtime-C form.  The f32 form keeps its own entry
-// (composite_fwd.cu).
+// (composite_fwd.cu).  A second entry says how many CTAs of each an SM
+// holds.
 #include "composite_fwd.cuh"
 
 namespace {
@@ -26,33 +27,59 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int CT, int F>
-int launch(const Args& a) {
-  return launch_forward<CT, kFwdBase, F>(a.table, a.P, a.C, a.gid, a.st, a.ct,
-                                         a.num_tiles, a.grid_x, a.tile_x,
-                                         a.tile_y, a.out, a.stream);
-}
-
-// The f32 features with the quad power: C = 3, 5, 7 compiled.
-int launch_quad(const Args& a) {
-  switch (a.C) {
-    case 3: return launch<3, kFormQuad>(a);
-    case 5: return launch<5, kFormQuad>(a);
-    case 7: return launch<7, kFormQuad>(a);
-    default: return launch<0, kFormQuad>(a);
+// The two things done with a form's kernel: launch it, or ask for its CTAs
+// per SM.
+struct Launch {
+  const Args& a;
+  template <int CT, int F>
+  int run() const {
+    return launch_forward<CT, kFwdBase, F>(a.table, a.P, a.C, a.gid, a.st,
+                                           a.ct, a.num_tiles, a.grid_x,
+                                           a.tile_x, a.tile_y, a.out,
+                                           a.stream);
   }
-}
+};
+
+struct Occupancy {
+  int C, tile_x, tile_y;
+  template <int CT, int F>
+  int run() const {
+    return forward_occupancy<CT, kFwdBase, F>(C, tile_x, tile_y);
+  }
+};
 
 // The packed features (Q = 0 or kFormQuad): C = 3 without the ones channel,
 // 5 and 7 with it, compiled.
-template <int Q>
-int launch_packed(const Args& a, bool ones) {
+template <int Q, typename Op>
+int packed_kernel(const Op& op, int C, bool ones) {
   constexpr int kP = kFormPacked | Q;
   constexpr int kPO = kFormPacked | kFormOnes | Q;
-  if (!ones && a.C == 3) return launch<3, kP>(a);
-  if (ones && a.C == 5) return launch<5, kPO>(a);
-  if (ones && a.C == 7) return launch<7, kPO>(a);
-  return ones ? launch<0, kPO>(a) : launch<0, kP>(a);
+  if (!ones && C == 3) return op.template run<3, kP>();
+  if (ones && C == 5) return op.template run<5, kPO>();
+  if (ones && C == 7) return op.template run<7, kPO>();
+  return ones ? op.template run<0, kPO>() : op.template run<0, kP>();
+}
+
+// op on the kernel of form, C and the ones channel: the f32 features with
+// the quad power at C = 3, 5, 7 compiled, or a packed form.
+template <typename Op>
+int form_kernel(const Op& op, int form, int C, bool ones) {
+  if (!(form & kFormPacked)) {
+    switch (C) {
+      case 3: return op.template run<3, kFormQuad>();
+      case 5: return op.template run<5, kFormQuad>();
+      case 7: return op.template run<7, kFormQuad>();
+      default: return op.template run<0, kFormQuad>();
+    }
+  }
+  return (form & kFormQuad) ? packed_kernel<kFormQuad>(op, C, ones)
+                            : packed_kernel<0>(op, C, ones);
+}
+
+bool valid_form(int form, int C, int Cg) {
+  const bool packed = (form & kFormPacked) != 0;
+  return form >= 1 && form <= (kFormQuad | kFormPacked) && Cg >= 1 &&
+         Cg <= C && C - Cg <= (packed ? 1 : 0);
 }
 
 }  // namespace
@@ -68,11 +95,7 @@ extern "C" int gsplat_composite_forward_form(int form, const void* table,
                                              int num_tiles, int grid_x,
                                              int tile_x, int tile_y,
                                              void* out, void* stream) {
-  const bool packed = (form & kFormPacked) != 0;
-  if (form < 1 || form > (kFormQuad | kFormPacked) || Cg < 1 || Cg > C ||
-      C - Cg > (packed ? 1 : 0)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (!valid_form(form, C, Cg)) return static_cast<int>(cudaErrorInvalidValue);
   if (num_tiles <= 0) return 0;
   const Args a{static_cast<const float*>(table), P, C,
                static_cast<const int*>(gauss_id),
@@ -80,7 +103,14 @@ extern "C" int gsplat_composite_forward_form(int form, const void* table,
                static_cast<const int*>(counts), num_tiles, grid_x, tile_x,
                tile_y, static_cast<float*>(out),
                static_cast<cudaStream_t>(stream)};
-  if (!packed) return launch_quad(a);
-  return (form & kFormQuad) ? launch_packed<kFormQuad>(a, C > Cg)
-                            : launch_packed<0>(a, C > Cg);
+  return form_kernel(Launch{a}, form, C, C > Cg);
+}
+
+// CTAs an SM holds at once of the kernel gsplat_composite_forward_form
+// launches for form, C, Cg and the tile shape (0 on an error).
+extern "C" int gsplat_composite_forward_form_occupancy(int form, int C,
+                                                       int Cg, int tile_x,
+                                                       int tile_y) {
+  if (!valid_form(form, C, Cg)) return 0;
+  return form_kernel(Occupancy{C, tile_x, tile_y}, form, C, C > Cg);
 }

@@ -10,12 +10,15 @@
 //
 // What it computes (the plain versions in gsplat_tpu_torch/tools/probes.py
 // define every output):
-//   load_only         K1's staging (composite_fwd.cuh::stage_batch): each
-//                     tile's batches of 256 gaussian ids, then their [6+C]
-//                     rows from the table, into shared memory; then one add per
-//                     batch: thread tid adds staged float tid of the batch
-//                     (row-major [nb][6+C], zero past the batch).  Output
-//                     [T, TILE_PIX], each thread's sum.  `limits` (optional)
+//   load_only         K1's staging (composite_fwd.cuh::stage_instances,
+//                     with a tile's 256 threads, the masks of its 8 warps):
+//                     each tile's
+//                     batches of 128 instances, their [6+C] rows through
+//                     their gaussian ids and their cull masks, into shared
+//                     memory; then one add per batch and output word: word p
+//                     adds staged float p of the batch (row-major [nb][6+C],
+//                     zero past the batch).  Output [T, TILE_PIX], the sums.
+//                     `limits` (optional)
 //                     cuts tile t to its first limits[t] instances, the
 //                     batches K1 itself stages before its early exit, so the
 //                     probe reads the bytes K1 reads.
@@ -30,7 +33,7 @@
 //   block_copy        out = src for a contiguous [I, R] block: the
 //                     pre-gathered table's copy, the baseline.
 //
-// Design.  load_only stages through K1's own stage_batch and
+// Design.  load_only stages through K1's own stage_instances and
 // compute_resident is K1's kernel itself, so both follow K1; both are
 // compiled for C = 7 and a runtime C like P1.  block_copy, and row_gather
 // at a row width R that is a multiple of 4, are grid-stride loops of 16
@@ -53,7 +56,6 @@
 namespace {
 
 constexpr int kGatherThreads = 256;
-constexpr unsigned kFullMask = 0xffffffffu;
 
 enum LoadVariant {
   kLoadOnly = 0,
@@ -64,19 +66,23 @@ enum LoadVariant {
 };
 
 template <int CT, int TILES>
-__global__ void __launch_bounds__(kMaxThreads)
+__global__ void __launch_bounds__(kMaxWalkThreads)
 probe_load_kernel(const float* __restrict__ table, int P, int C,
                   const int* __restrict__ gauss_id,
                   const int* __restrict__ starts,
                   const int* __restrict__ counts,
-                  const int* __restrict__ limits, int num_tiles, int npix,
-                  float* __restrict__ out) {
+                  const int* __restrict__ limits, int num_tiles, int grid_x,
+                  int tile_x, int tile_y, float* __restrict__ out) {
   extern __shared__ float smem[];
   const int row = kGeo + (CT > 0 ? CT : C);
+  const int npix = tile_x * tile_y;
   float* s_rows = smem;
-  int* s_gid = reinterpret_cast<int*>(smem + kFwdBatch * row);
+  unsigned* s_may = reinterpret_cast<unsigned*>(smem + kFwdBatch * row);
   const int tid = threadIdx.x;
-  float acc = 0.f;
+  const int nthreads = blockDim.x;
+  float acc[kPix];
+#pragma unroll
+  for (int j = 0; j < kPix; ++j) acc[j] = 0.f;
   for (int i = 0; i < TILES; ++i) {
     const int t = blockIdx.x * TILES + i;
     if (t >= num_tiles) break;  // the same for the whole CTA
@@ -86,12 +92,23 @@ probe_load_kernel(const float* __restrict__ table, int P, int C,
     for (int b0 = 0; b0 < count; b0 += kFwdBatch) {
       const int nb = min(kFwdBatch, count - b0);
       __syncthreads();  // the previous batch has been read
-      stage_batch(table, P, row, gauss_id, start, b0, nb, npix, s_rows,
-                  s_gid);
-      if (tid < nb * row) acc += s_rows[tid];
+      stage_instances<false, false>(
+          table, P, row, row, row - kGeo, gauss_id + start + b0, nb, tid,
+          nthreads, (t % grid_x) * tile_x, (t / grid_x) * tile_y, tile_x,
+          tile_y, npix, 0, nthreads >> 5, s_rows, s_may, nullptr);
+      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < kPix; ++j) {
+        const int p = tid + j * nthreads;
+        if (p < nb * row) acc[j] += s_rows[p];
+      }
     }
   }
-  out[static_cast<size_t>(blockIdx.x) * npix + tid] = acc;
+#pragma unroll
+  for (int j = 0; j < kPix; ++j) {
+    const int p = tid + j * nthreads;
+    if (p < npix) out[static_cast<size_t>(blockIdx.x) * npix + p] = acc[j];
+  }
 }
 
 // row_gather (ids != nullptr) or block_copy (ids == nullptr), W floats at a
@@ -158,7 +175,7 @@ probe_gather_rows_kernel(const float* __restrict__ src, int P, int R,
       for (int j = 0; j < kSteps; ++j) {
         const unsigned e = e0 + lane + 32u * j;
         const unsigned row = e / static_cast<unsigned>(r);
-        const int gr = __shfl_sync(kFullMask, g, row & 31u);
+        const int gr = __shfl_sync(kFull, g, row & 31u);
         v[j] = (e < n && gr >= 0 && gr < P)
                    ? __ldg(src + static_cast<size_t>(gr) * r +
                            (e - row * static_cast<unsigned>(r)))
@@ -199,21 +216,19 @@ int launch_tiles(int variant, const float* tb, int P, int C, const int* gid,
                  const int* st, const int* ct, const int* lim, int num_tiles,
                  int grid_x, int tile_x, int tile_y, float* o,
                  cudaStream_t s) {
-  const int npix = tile_x * tile_y;
-  const size_t smem =
-      static_cast<size_t>(kFwdBatch) * (kGeo + C) * sizeof(float) +
-      kFwdBatch * sizeof(int);
+  const int threads = walk_threads(tile_x * tile_y);
+  const size_t smem = fwd_smem_bytes(C, false);
   int err;
   switch (variant) {
     case kLoadOnly:
       if ((err = set_smem(probe_load_kernel<CT, 1>, smem))) return err;
-      probe_load_kernel<CT, 1><<<num_tiles, npix, smem, s>>>(
-          tb, P, C, gid, st, ct, lim, num_tiles, npix, o);
+      probe_load_kernel<CT, 1><<<num_tiles, threads, smem, s>>>(
+          tb, P, C, gid, st, ct, lim, num_tiles, grid_x, tile_x, tile_y, o);
       break;
     case kLoadOnly4Tiles:
       if ((err = set_smem(probe_load_kernel<CT, 4>, smem))) return err;
-      probe_load_kernel<CT, 4><<<(num_tiles + 3) / 4, npix, smem, s>>>(
-          tb, P, C, gid, st, ct, lim, num_tiles, npix, o);
+      probe_load_kernel<CT, 4><<<(num_tiles + 3) / 4, threads, smem, s>>>(
+          tb, P, C, gid, st, ct, lim, num_tiles, grid_x, tile_x, tile_y, o);
       break;
     default:
       return launch_forward<CT, kComputeResident>(
@@ -236,10 +251,7 @@ extern "C" int gsplat_probe_load(int variant, const void* table, int P,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (num_tiles <= 0) return 0;
-  const int npix = tile_x * tile_y;
-  if (npix <= 0 || npix > kMaxThreads) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (const int e = forward_shape_error(C, tile_x, tile_y, false)) return e;
   const float* tb = static_cast<const float*>(table);
   const int* gid = static_cast<const int*>(gauss_id);
   const int* st = static_cast<const int*>(starts);

@@ -43,9 +43,14 @@ ATTR_BASE = 6      # table columns: mean x, mean y, conic a, b, c, opacity
 CHUNK = 128        # instances per step of the plain version
 LOG2E = 1.4426950408889634
 QUAD_POWER_CUT = 1e-4   # composite_pallas.py:172, the mxu_power form's cut
-_KERNEL_BATCH = 256                 # kFwdBatch in composite_fwd.cuh
-_MAX_THREADS = 1024                 # one thread per tile pixel in K1 and K2
+_KERNEL_BATCH = 128                 # kFwdBatch in composite_fwd.cuh
+_MAX_THREADS = 1024                 # pixels a tile may have (kMaxThreads)
 _SMEM_LIMIT = 232448                # bytes of shared memory a CTA can use
+# K1's and K2's warp map (composite_common.cuh): a thread owns PIX_PER_THREAD
+# consecutive pixels of a row, a warp a WARP_BLOCK block of them where the
+# tile divides into such blocks, else 128 pixels in row-major order.
+PIX_PER_THREAD = 4
+WARP_BLOCK = (16, 8)
 
 
 def tile_ranges(bins: BinningOut):
@@ -101,6 +106,81 @@ def tile_basis(tiles, grid_x: int):
     qx = (lane % TILE_X).to(torch.float32)[None]
     qy = (lane // TILE_X).to(torch.float32)[None]
     return ox, oy, qx, qy
+
+
+def pixel_warps(tile_x: int = TILE_X, tile_y: int = TILE_Y):
+    """[tile_x * tile_y] int64: the warp of K1's and K2's walk that owns
+    each tile pixel (row-major pixel index)."""
+    pix = torch.arange(tile_x * tile_y)
+    bx, by = WARP_BLOCK
+    if tile_x % bx == 0 and tile_y % by == 0:
+        return (pix // tile_x // by) * (tile_x // bx) + pix % tile_x // bx
+    return pix // (32 * PIX_PER_THREAD)
+
+
+def warp_boxes(tile_x: int = TILE_X, tile_y: int = TILE_Y):
+    """[(x0, x1, y0, y1)] per warp: the tile-local box of its pixels, as
+    ``warps_that_may_composite`` bounds it."""
+    npix = tile_x * tile_y
+    bx, by = WARP_BLOCK
+    per = 32 * PIX_PER_THREAD
+    boxes = []
+    for w in range((npix + per - 1) // per):
+        if tile_x % bx == 0 and tile_y % by == 0:
+            x0, y0 = w % (tile_x // bx) * bx, w // (tile_x // bx) * by
+            boxes.append((x0, x0 + bx - 1, y0, y0 + by - 1))
+        else:
+            p0, p1 = w * per, min(w * per + per, npix) - 1
+            y0, y1 = p0 // tile_x, p1 // tile_x
+            boxes.append((p0 - y0 * tile_x if y0 == y1 else 0,
+                          p1 - y1 * tile_x if y0 == y1 else tile_x - 1,
+                          y0, y1))
+    return boxes
+
+
+def _quad_min_box(a, b, c, xl, xh, yl, yh):
+    """The least of a x^2 + 2 b x y + c y^2 over the box, elementwise, in
+    the kernel's operation order (composite_common.cuh::quad_min_box)."""
+    inside = (xl <= 0) & (xh >= 0) & (yl <= 0) & (yh >= 0)
+    m = torch.full_like(a, float("inf"))
+    for y, x2 in ((yl, xl), (yh, xh)):
+        x = torch.fmin(torch.fmax(-b * y / a, xl), xh)
+        m = torch.fmin(m, a * x * x + 2.0 * b * x * y + c * y * y)
+        y2 = torch.fmin(torch.fmax(-b * x2 / c, yl), yh)
+        m = torch.fmin(m, a * x2 * x2 + 2.0 * b * x2 * y2 + c * y2 * y2)
+    return torch.where(inside, torch.zeros_like(m), m)
+
+
+def warps_that_may_composite_plain(rows, ox, oy, real=None,
+                                   tile_x: int = TILE_X,
+                                   tile_y: int = TILE_Y):
+    """Plain version of K1's and K2's per-warp cull
+    (``csrc/composite_common.cuh::warps_that_may_composite``): int64 masks
+    [n, K], bit w set where warp w's pixels may composite the instance of
+    geometry ``rows`` [n, K, >=6] (mean, conic, opacity) in the tile at
+    ``ox``, ``oy`` [n, 1].  A warp is left out only where the least
+    quadratic form over its box keeps the power under the alpha >= 1/255
+    threshold -ln(255 op) by the kernel's margin, 0.05 plus 1e-5 of the
+    terms' magnitude.  A conic that is not positive definite or values that
+    are not finite keep every bit; an opacity <= 0, and an instance whose
+    ``real`` [n, K] is False (the pad sentinel), keep none."""
+    mx, my, a, b, c, op = (rows[..., j] for j in range(6))
+    boxes = warp_boxes(tile_x, tile_y)
+    full = (1 << len(boxes)) - 1
+    ok = ((a > 0) & (c > 0) & (a * c - b * b > 0) & torch.isfinite(mx)
+          & torch.isfinite(my) & torch.isfinite(a) & torch.isfinite(b)
+          & torch.isfinite(c))
+    xr, yr = mx - ox, my - oy
+    span = xr.abs() + yr.abs() + 2.0 * (tile_x + tile_y)
+    limit = 2.0 * (torch.log(255.0 * op) + 0.05
+                   + 1e-5 * (a + b.abs() + c) * span * span)
+    may = torch.zeros(mx.shape, dtype=torch.int64, device=rows.device)
+    for w, (x0, x1, y0, y1) in enumerate(boxes):
+        q = _quad_min_box(a, b, c, xr - x1, xr - x0, yr - y1, yr - y0)
+        may |= (~(q > limit)).long() << w
+    may = torch.where(op > 0, may, torch.where(op <= 0, 0, full))
+    may = torch.where(ok, may, full)
+    return may if real is None else torch.where(real, may, 0)
 
 
 def quad_power_coefficients(rows, ox, oy):
@@ -313,9 +393,11 @@ def composite_forward(table, gauss_id, starts, counts, grid_x: int,
                                        form, Cg)
     req(dev.type == "cuda", f"unsupported device {dev}")
     P = table.shape[0]
-    req(TILE_PIX <= _MAX_THREADS,
-        f"TILE_X*TILE_Y={TILE_PIX} exceeds {_MAX_THREADS} threads")
-    # a batch's rows, ids and (mxu_power) six coefficients per instance
+    req(TILE_PIX <= _MAX_THREADS and TILE_X % PIX_PER_THREAD == 0,
+        f"tiles of {TILE_X}x{TILE_Y}: K1 takes at most {_MAX_THREADS} pixels "
+        f"in rows of a multiple of {PIX_PER_THREAD}")
+    # a batch's rows, cull masks and (mxu_power) six coefficients per
+    # instance
     req(_KERNEL_BATCH * (ATTR_BASE + C + 1 + 6 * form.mxu_power) * 4
         <= _SMEM_LIMIT,
         f"C={C} channels exceed the kernel's shared-memory batch")
@@ -477,6 +559,20 @@ def backward_occupancy(C: int, Cg: int, form: Form = F32) -> int:
         n = lib.gsplat_composite_backward_form_occupancy(form.bits, C, Cg,
                                                          TILE_X, TILE_Y)
     _kernels.require(n > 0, f"K2{form.name}: no occupancy at C={C}, Cg={Cg}")
+    return n
+
+
+def forward_occupancy(C: int, Cg: int, form: Form = F32) -> int:
+    """CTAs of K1's kernel in ``form`` that one SM of the current card holds
+    at once at this tile shape, C and Cg (``composite_forward``'s: the
+    stored features, C unless packed); needs a card."""
+    lib = _kernels.lib()
+    if form == F32:
+        n = lib.gsplat_composite_forward_occupancy(C, TILE_X, TILE_Y)
+    else:
+        n = lib.gsplat_composite_forward_form_occupancy(form.bits, C, Cg,
+                                                        TILE_X, TILE_Y)
+    _kernels.require(n > 0, f"K1{form.name}: no occupancy at C={C}, Cg={Cg}")
     return n
 
 

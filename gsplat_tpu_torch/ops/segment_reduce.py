@@ -5,9 +5,11 @@ PyTorch + CUDA port of ``gsplat_tpu/ops/segment_reduce.py``.  The backward
 pass leaves one gradient row per instance (one per (tile, gaussian) pair);
 they reduce to per-gaussian rows by a stable sort of the gaussian ids (the
 library sort, as the JAX package calls ``jax.lax.sort`` outside any kernel)
-followed by K4, which sums the now contiguous segments in index order with
-no atomics.  K4 reads its rows through the sort's permutation, so only the
-ids are sorted and no sorted copy of the ``[I, R]`` rows is ever made.
+followed by K4, which finds each segment's first row in one pass over the
+sorted ids (``segment_bounds_plain``) and sums the now contiguous segments
+in index order with no atomics.  K4 reads its rows through the sort's
+permutation, so only the ids are sorted and no sorted copy of the
+``[I, R]`` rows is ever made.
 
 The bf16 pair options of ``gather_rows`` (``grad_precision="bf16"``,
 ``packed_tail``) are plain torch around K4, as in the JAX package: the
@@ -38,6 +40,32 @@ def segment_sum_sorted_plain(vals, sids, num_segments: int, perm=None):
     return out
 
 
+def segment_bounds_plain(sids, num_segments: int):
+    """Plain version of K4's first pass: ``seg_start`` [num_segments + 1]
+    int64, the first row of each segment of the sorted ``sids`` [I] (and
+    after the last, the end of the kept rows), built as the kernel builds it:
+    row i in [0, I] starts every segment s in ``(sids[i-1], sids[i]]``
+    (``sids[-1]`` = -inf, ``sids[I]`` = +inf) clipped to
+    ``[0, num_segments]``.  The kernel leaves the two end runs to a clamp
+    (``csrc/segsum.cu``); the values it writes are these."""
+    dev = sids.device
+    I = sids.shape[0]
+    s = sids.long()
+    big = torch.tensor([1 << 40], dtype=torch.long, device=dev)
+    lo = torch.cat([-big, s]) + 1                 # first segment of row i
+    hi = torch.cat([s, big])                      # last segment of row i
+    lo = torch.clamp(lo, 0, num_segments + 1)
+    hi = torch.clamp(hi, -1, num_segments)
+    n = torch.clamp(hi - lo + 1, min=0)           # [I + 1]
+    rows = torch.repeat_interleave(torch.arange(I + 1, device=dev), n)
+    first = torch.repeat_interleave(lo, n)
+    offs = torch.arange(rows.shape[0], device=dev) - torch.repeat_interleave(
+        torch.cumsum(n, 0) - n, n)
+    seg_start = torch.empty(num_segments + 1, dtype=torch.long, device=dev)
+    seg_start[first + offs] = rows
+    return seg_start
+
+
 def segment_sum_sorted(vals: torch.Tensor, sids: torch.Tensor,
                        num_segments: int,
                        perm: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -46,7 +74,8 @@ def segment_sum_sorted(vals: torch.Tensor, sids: torch.Tensor,
     ``[0, num_segments)`` are dropped padding.  With ``perm`` [I] int64 (a
     permutation of ``range(I)``, as ``torch.sort`` returns it) row i of the
     sorted order is ``vals[perm[i]]``.  A CPU tensor goes to
-    ``segment_sum_sorted_plain``; a CUDA tensor launches ``csrc/segsum.cu``."""
+    ``segment_sum_sorted_plain``; a CUDA tensor launches ``csrc/segsum.cu``
+    (its segment bounds pass and its sums, counted as one launch)."""
     dev = vals.device
     req = _kernels.require
     req(vals.dtype == torch.float32, f"vals must be float32, got {vals.dtype}")
@@ -65,11 +94,14 @@ def segment_sum_sorted(vals: torch.Tensor, sids: torch.Tensor,
     req(dev.type == "cuda", f"unsupported device {dev}")
     out = torch.empty((num_segments, R), dtype=torch.float32, device=dev)
     lib = _kernels.lib()
+    # the segment bounds of the kernel's first pass
+    scratch = torch.empty(lib.gsplat_segment_sum_scratch(num_segments),
+                          dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = lib.gsplat_segment_sum(
             vals.data_ptr(), sids.data_ptr(),
             None if perm is None else perm.data_ptr(), I, R, num_segments,
-            out.data_ptr(), _kernels.stream_of(vals))
+            scratch.data_ptr(), out.data_ptr(), _kernels.stream_of(vals))
     _kernels.check(err, "segment_sum_sorted")
     _kernels.launch_counts["segment_sum"] += 1
     return out

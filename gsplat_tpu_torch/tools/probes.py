@@ -147,7 +147,7 @@ def probe_forward(variant, table, gauss_id, starts, counts, grid_x: int):
                      f"{comp._MAX_THREADS} threads")
     P, R = table.shape
     C = R - comp.ATTR_BASE
-    # a batch's rows, ids and (quad_power) six coefficients per instance
+    # a batch's rows, cull masks and (quad_power) six coefficients each
     _kernels.require((comp._KERNEL_BATCH * (R + 1 + 6)) * 4
                      <= comp._SMEM_LIMIT,
                      f"C={C} channels exceed the kernel's shared-memory batch")

@@ -1,7 +1,8 @@
 """Compare the SASS nvcc emits for K1's and K2's f32 forms between two
 trees of ``gsplat_tpu_torch/csrc``.
 
-    python -m gsplat_tpu_torch.tools.sass_diff --old <csrc dir> [--new <dir>]
+    python -m gsplat_tpu_torch.tools.sass_diff --old <csrc dir> [--new <dir>] \
+        [--kernels forward|backward|all]
 
 compiles ``composite_fwd.cu`` and ``composite_bwd.cu`` of both trees with
 the build's flags (``_kernels.NVCC_FLAGS``) to cubins, disassembles them
@@ -10,7 +11,8 @@ instruction.  A kernel is named by its template arguments: a form argument
 0 (``composite_forward_kernel<CT, V, 0>``) is the same kernel as the one
 without it (``<CT, V>``), and the anonymous namespace's per-file tag is
 dropped.  Prints one line per kernel and exits 1 if any differs or is
-missing from either tree.  Needs ``nvcc`` and ``cuobjdump``, no card.
+missing from either tree; ``--kernels`` compares K1's (forward) or K2's
+(backward) alone.  Needs ``nvcc`` and ``cuobjdump``, no card.
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ import tempfile
 
 from gsplat_tpu_torch import _kernels
 
-SOURCES = ("composite_fwd.cu", "composite_bwd.cu")
+SOURCES = {"forward": "composite_fwd.cu", "backward": "composite_bwd.cu"}
 _KERNEL = re.compile(r"(composite_(?:forward|backward)_kernel)"
                      r"ILi(-?\d+)ELi(-?\d+)E(?:Li(-?\d+)E)?E")
 
@@ -32,12 +34,12 @@ def _tool(name: str) -> str:
     return os.path.join(os.path.dirname(_kernels.find_nvcc()), name)
 
 
-def kernels(csrc: str, out_dir: str) -> dict:
+def kernels(csrc: str, out_dir: str, which=tuple(SOURCES)) -> dict:
     """{(kernel, CT, V, form): [SASS lines]} of the f32 sources in
-    ``csrc``."""
+    ``csrc`` (``which``: "forward", "backward")."""
     flags = [f for f in _kernels.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
     found = {}
-    for src in SOURCES:
+    for src in (SOURCES[k] for k in which):
         cubin = os.path.join(out_dir, src.replace(".cu", ".cubin"))
         subprocess.run([_kernels.find_nvcc(), *flags, "-I", csrc, "-cubin",
                         os.path.join(csrc, src), "-o", cubin], check=True)
@@ -64,10 +66,13 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--old", required=True, help="the parent's csrc")
     ap.add_argument("--new", default=_kernels.CSRC_DIR)
+    ap.add_argument("--kernels", default="all",
+                    choices=("forward", "backward", "all"))
     args = ap.parse_args(argv)
+    which = tuple(SOURCES) if args.kernels == "all" else (args.kernels,)
     with tempfile.TemporaryDirectory() as a, \
             tempfile.TemporaryDirectory() as b:
-        old, new = kernels(args.old, a), kernels(args.new, b)
+        old, new = kernels(args.old, a, which), kernels(args.new, b, which)
     same = True
     for key in sorted(set(old) | set(new), key=str):
         o, n = old.get(key), new.get(key)

@@ -223,6 +223,40 @@ def _tile_batches(table, starts, counts, grid_x):
         yield slice(t0, t1), px, py, table_p, ks
 
 
+def _pixel_stops(table, gauss_id, starts, counts, grid_x, n_contrib, quad):
+    """Per batch of tiles (``_tile_batches``'): (slice, counts [n], stop
+    [n, TILE_PIX], composited).  ``stop`` is each pixel's stopping position
+    (the first instance at or after its n_contrib that passes the skip
+    tests; int64 max where none does), ``composited`` the pairs before
+    n_contrib that pass them."""
+    P = table.shape[0]
+    big = torch.iinfo(torch.int64).max
+    cut = comp.QUAD_POWER_CUT if quad else 0.0
+    for sl, px, py, table_p, ks in _tile_batches(table, starts, counts,
+                                                 grid_x):
+        cnt = counts[sl].long()
+        nc = n_contrib[sl].long()                            # [n,PIX]
+        stop = torch.full_like(nc, big)
+        composited = 0
+        basis = (comp.tile_basis(torch.arange(
+            sl.start, sl.stop, device=table.device), grid_x)
+            if quad else None)
+        for c0 in range(0, int(cnt.max()), comp.CHUNK):
+            if bool(((stop < big) | (cnt[:, None] <= c0)).all()):
+                break
+            pos = c0 + ks
+            rows, valid, _ = comp._instance_rows(table_p, gauss_id, starts[sl],
+                                                 counts[sl], pos, P)
+            _, _, power, raw = comp.pair_terms(rows, px, py, basis)
+            alpha = torch.clamp(raw, max=comp.ALPHA_MAX)
+            passes = valid[:, :, None] & (power <= cut) & (alpha >= ALPHA_MIN)
+            before = pos[None, :, None] < nc[:, None, :]
+            composited += int((passes & before).sum())
+            stop = torch.minimum(stop, torch.where(
+                passes & ~before, pos[None, :, None], big).amin(dim=1))
+        yield sl, cnt, stop, composited
+
+
 def k1_pair_counts(table, gauss_id, starts, counts, grid_x, n_contrib,
                    quad=False):
     """K1's (pixel, instance) pairs on these inputs, given its per-pixel
@@ -234,34 +268,14 @@ def k1_pair_counts(table, gauss_id, starts, counts, grid_x, n_contrib,
     Before position n_contrib every instance that passes the skip tests is
     composited.  The first one that passes them after it stops the pixel;
     a pixel with none tests its whole tile.  ``limits`` [T] int32 is the
-    number of instances K1 stages in each tile: whole batches of 256 until
-    every pixel of the tile has stopped."""
-    P = table.shape[0]
+    number of instances K1 stages in each tile: whole batches of
+    ``_KERNEL_BATCH`` until every pixel of the tile has stopped."""
     big = torch.iinfo(torch.int64).max
     tested = composited = stopping = 0
     limits = counts.clone()
-    for sl, px, py, table_p, ks in _tile_batches(table, starts, counts,
-                                                 grid_x):
-        cnt = counts[sl].long()
-        nc = n_contrib[sl].long()                            # [n,PIX]
-        stop = torch.full_like(nc, big)
-        for c0 in range(0, int(cnt.max()), comp.CHUNK):
-            if bool(((stop < big) | (cnt[:, None] <= c0)).all()):
-                break
-            pos = c0 + ks
-            rows, valid, _ = comp._instance_rows(table_p, gauss_id, starts[sl],
-                                                 counts[sl], pos, P)
-            basis = (comp.tile_basis(torch.arange(
-                sl.start, sl.stop, device=table.device), grid_x)
-                if quad else None)
-            _, _, power, raw = comp.pair_terms(rows, px, py, basis)
-            alpha = torch.clamp(raw, max=comp.ALPHA_MAX)
-            cut = comp.QUAD_POWER_CUT if quad else 0.0
-            passes = valid[:, :, None] & (power <= cut) & (alpha >= ALPHA_MIN)
-            before = pos[None, :, None] < nc[:, None, :]
-            composited += int((passes & before).sum())
-            stop = torch.minimum(stop, torch.where(
-                passes & ~before, pos[None, :, None], big).amin(dim=1))
+    for sl, cnt, stop, comp_n in _pixel_stops(table, gauss_id, starts, counts,
+                                              grid_x, n_contrib, quad):
+        composited += comp_n
         found = stop < big
         stopping += int(found.sum())
         tested += int(torch.where(found, stop + 1, cnt[:, None]).sum())
@@ -273,6 +287,51 @@ def k1_pair_counts(table, gauss_id, starts, counts, grid_x, n_contrib,
             cnt).to(torch.int32)
     return dict(tested=tested, composited=composited, stopping=stopping,
                 limits=limits)
+
+
+def k1_culled_pairs(table, gauss_id, starts, counts, grid_x, n_contrib,
+                    quad=False):
+    """The (pixel, instance) pairs K1's warps test after the cull, given its
+    ``n_contrib`` (``k1_pair_counts``' arguments): dict(tested, live,
+    warp_instances).  A warp walks its tile's instances up to the one where
+    its last pixel stops (all of them if one never does) and tests the
+    instances whose cull bit it has (``comp.warps_that_may_composite_plain``,
+    the kernel's cull in torch): ``warp_instances`` counts those, ``tested``
+    their pairs (each of the warp's pixels inside the tile, done or not), and
+    ``live`` the pairs of pixels not yet done, the pairs K1 tested before
+    the cull that the cull keeps (a pixel tests up to its own stop)."""
+    P = table.shape[0]
+    big = torch.iinfo(torch.int64).max
+    dev = table.device
+    warp_of = comp.pixel_warps().to(dev)                     # [PIX]
+    nwarps = int(warp_of.max()) + 1
+    onehot = torch.nn.functional.one_hot(warp_of, nwarps).T.to(torch.int64)
+    per_warp = onehot.sum(dim=1)                             # [W] pixels
+    tested = live = warp_instances = 0
+    for sl, cnt, stop, _ in _pixel_stops(table, gauss_id, starts, counts,
+                                         grid_x, n_contrib, quad):
+        last = torch.where(stop < big, stop, cnt[:, None] - 1)  # [n,PIX]
+        # a warp's last instance: its pixels' latest stop
+        wlast = torch.where(onehot[None].bool(), last[:, None, :],
+                            -1).amax(dim=2)                  # [n,W]
+        tiles = torch.arange(sl.start, sl.stop, device=dev)
+        ox, oy, _, _ = comp.tile_basis(tiles, grid_x)
+        table_p = torch.cat([table, table.new_zeros((1, table.shape[1]))])
+        ks = torch.arange(comp.CHUNK, dtype=torch.int64, device=dev)
+        for c0 in range(0, int(cnt.max()) if cnt.numel() else 0, comp.CHUNK):
+            pos = c0 + ks
+            rows, valid, _ = comp._instance_rows(table_p, gauss_id, starts[sl],
+                                                 counts[sl], pos, P)
+            may = comp.warps_that_may_composite_plain(rows, ox, oy, valid)
+            bits = (may[:, :, None] >> torch.arange(nwarps, device=dev)) & 1
+            bits = bits.bool() & valid[:, :, None]           # [n,K,W]
+            w_on = bits & (pos[None, :, None] <= wlast[:, None, :])
+            warp_instances += int(w_on.sum())
+            tested += int((w_on.long() * per_warp).sum())
+            p_on = bits[:, :, warp_of] & (pos[None, :, None]
+                                          <= last[:, None, :])
+            live += int(p_on.sum())
+    return dict(tested=tested, live=live, warp_instances=warp_instances)
 
 
 def walk_counts(table, gauss_id, starts, counts, grid_x):
