@@ -80,14 +80,16 @@ Phases (any failure exits non-zero; nothing is caught):
    each single form, and bench.py's serving configuration
    (``render_only=True, feat_precision="bf16"``) at 1080p: its frame
    median and device busy time;
-12. (g) K1 and K2 at 16x16 tiles: the tile shape is read at import, so a
-   fresh interpreter (this script with ``--tile16`` and
-   ``GSPLAT_TILE_X/Y=16``, started after the build and held until this
-   phase) renders a seeded scene of 4,000 gaussians at 256x256 and holds
-   K1 and K2 in each of their four forms against their plain versions by
-   the rules of 4. and (f) (K1 within the channels' tolerances, n_contrib
-   equal; K2's rows finite, pad slots zero, two launches bit-equal); its
-   time is printed.  K1's and K2's CTAs per SM at C = 3, 5, 7 and a
+12. (g) K1 and K2 at 16x16 tiles, and K1 at 9x9 (its row-crossing
+   kernel): the tile shape is read at import, so a fresh interpreter per
+   shape (this script with ``--tile 16x16`` and ``GSPLAT_TILE_X/Y``,
+   started after the build and held until this phase) renders a seeded
+   scene of 4,000 gaussians at 256x256 and holds K1, and K2 where the tile
+   is whole warps, in each of their four forms against their plain
+   versions by the rules of 4. and (f) (K1 within the channels'
+   tolerances, n_contrib equal; K2's rows finite, pad slots zero, two
+   launches bit-equal), and checks the warp map K1 and K2 share against
+   the cull's boxes at the shape; its time is printed.  K1's and K2's CTAs per SM at C = 3, 5, 7 and a
    runtime C are printed beside ptxas's registers and spills (K1's also
    in 4. and (f)).
 
@@ -124,7 +126,7 @@ def check(cond, msg):
 # ptxas's -v report of the build, kept for the phases that print K1's
 # registers and spills
 PTXAS = {"report": ""}
-_K1_ENTRY = re.compile(r"composite_forward_kernelILi(\d+)ELi0ELi(\d+)E")
+_K1_ENTRY = re.compile(r"composite_forward_kernelILi(\d+)ELi0ELi(\d+)ELb0E")
 
 
 def k1_ptxas(C, bits):
@@ -132,16 +134,12 @@ def k1_ptxas(C, bits):
     compile-time C in the form of Form bits ``bits`` (kFormQuad 1,
     kFormPacked 2, kFormOnes 4), from the build's report: "N registers,
     S bytes spilled"."""
-    lines = PTXAS["report"].splitlines()
-    for i, line in enumerate(lines):
-        m = _K1_ENTRY.search(line)
-        if m and "Compiling entry" in line and (int(m[1]), int(m[2])) == (
-                C, bits):
-            regs = re.search(r"Used (\d+) registers", lines[i + 3])
-            spill = re.search(r"(\d+) bytes spill stores", lines[i + 2])
-            return (f"{regs[1] if regs else '?'} registers, "
-                    f"{spill[1] if spill else '?'} bytes spilled")
-    return "not in the report"
+    from gsplat_tpu_torch import _kernels
+    entries = _kernels.ptxas_entries(PTXAS["report"], _K1_ENTRY)
+    if (str(C), str(bits)) not in entries:
+        return "not in the report"
+    regs, spill = entries[(str(C), str(bits))]
+    return f"{regs} registers, {spill} bytes spilled"
 
 
 def card_line():
@@ -1248,6 +1246,7 @@ def phase_form_kernels(torch, card, w):
     gid, starts, counts, gx = w.gauss_id, w.starts, w.counts, w.grid_x
     T = starts.shape[0]
     rows = {}
+    quad_culled = None
     for name in FORMS:
         form = wl.form_of(name)
         table = wl.form_table(w.table, Cg, form)
@@ -1269,14 +1268,14 @@ def phase_form_kernels(torch, card, w):
         cg = Cg if form.feat_packed else C
         occ1 = (f"{comp.forward_occupancy(C, cg, form)} CTAs per SM, "
                 f"{k1_ptxas(C, bits)}")
-        pairs = (wl.k1_pair_counts(w.table, gid, starts, counts, gx,
-                                   out_k[:, C + 1], quad=True)
-                 if form.mxu_power else w.pairs)
+        # the quad forms' walk (their features do not reach n_contrib)
+        if form.mxu_power and quad_culled is None:
+            quad_culled = wl.k1_culled_pairs(*w.k1_args, out_k[:, C + 1],
+                                             quad=True)
+        culled = quad_culled if form.mxu_power else w.culled
         test_ops = wl.K1_TEST_OPS - int(form.mxu_power)   # P1 quad_power's
-        ops1 = wl.k1_ops(pairs, C, test_ops=test_ops)
-        if form.feat_packed:
-            ops1 += wl.UNPACK_OPS * Cg * wl.staged_instances(
-                w, pairs["limits"])[1]
+        ops1 = wl.k1_ops(culled, C, test_ops=test_ops, quad=form.mxu_power,
+                         unpack=Cg if form.feat_packed else 0)
         bytes1 = (table.numel() * 4 + int(counts.sum()) * 4 + 2 * 4 * T
                   + out_k.numel() * 4)
         bound1, by1 = wl.bound_ms(bytes1, ops1)
@@ -1304,7 +1303,7 @@ def phase_form_kernels(torch, card, w):
         limit = torch.minimum(nc.amax(dim=1).long(), counts.long())
         staged, n_real = wl.staged_instances(w, limit)
         ops2 = ((wl.K2_TEST_OPS - int(form.mxu_power)) * int(nc.sum())
-                + wl.k2_pair_ops(C, Cg) * pairs["composited"])
+                + wl.k2_pair_ops(C, Cg) * culled["composited"])
         if form.feat_packed:
             ops2 += (wl.UNPACK_OPS * Cg * n_real
                      + wl.PACK_OPS * ((Cg + 1) // 2) * staged)
@@ -1318,7 +1317,8 @@ def phase_form_kernels(torch, card, w):
               f", n_contrib equal; {occ1}; {ms1:.4f} ms (plain "
               f"{plain_ms:.1f} ms), "
               f"bound {bound1:.4f} ms ({bytes1} bytes, {ops1} ops; pairs "
-              f"{pairs['tested']} tested, {pairs['composited']} composited)"
+              f"{culled['live']} live after the cull, "
+              f"{culled['composited']} composited)"
               f"; K2 vs plain max |diff| {err2:.3g} (worst column "
               f"{worst:.2e} of its largest), {ms2:.4f} ms (plain "
               f"{plain2_ms:.1f} ms), bound {bound2:.4f} ms ({bytes2} bytes, "
@@ -1480,42 +1480,53 @@ def form_rows(rows, launches):
     return out
 
 
-# (g) K1 and K2 at 16x16 tiles, in a fresh interpreter
-TILE16_GAUSSIANS, TILE16_SIZE, TILE16_TIMEOUT = 4000, 256, 120
+# (g) K1 and K2 at other tile shapes, each in a fresh interpreter: 16x16,
+# and 9x9, where a thread's four pixels cross a row and the last thread's
+# reach past the tile (K1's row-crossing kernel; K2 takes tiles of whole
+# warps only, so K1 alone)
+TILE_SHAPES = ((16, 16), (9, 9))
+# the shapes at which main checks the warp map (blocks, row-major, rows that
+# cross, a last thread past the tile)
+WARP_MAP_SHAPES = ((32, 32), (16, 16), (48, 16), (8, 8), (9, 9), (10, 10),
+                   (6, 16), (5, 5))
+TILE_GAUSSIANS, TILE_SIZE, TILE_TIMEOUT = 4000, 256, 120
 
 
-def start_tile16():
-    """This script with ``--tile16`` under 16x16 tiles, started once the
-    kernels are built: it imports and reaches the card while the phases
-    before (g) run, then waits for a line on its stdin, so that its kernels
-    run alone (``phase_tile16``).  It is killed if this process exits
-    first; on its own it exits when its stdin closes."""
-    env = dict(os.environ, GSPLAT_TILE_X="16", GSPLAT_TILE_Y="16")
+def start_tile_child(tx, ty):
+    """This script with ``--tile TXxTY`` under tiles of that shape, started
+    once the kernels are built: it imports and reaches the card while the
+    phases before (g) run, then waits for a line on its stdin, so that its
+    kernels run alone (``phase_tiles``).  It is killed if this process
+    exits first; on its own it exits when its stdin closes."""
+    env = dict(os.environ, GSPLAT_TILE_X=str(tx), GSPLAT_TILE_Y=str(ty))
     child = subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--tile16"], env=env,
-        stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-        text=True)
+        [sys.executable, os.path.abspath(__file__), "--tile", f"{tx}x{ty}"],
+        env=env, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
     atexit.register(lambda: child.poll() is None and child.kill())
     return child
 
 
-def phase_tile16(card, child):
-    """Lets the 16x16 child run and checks it said so."""
-    t0 = time.perf_counter()
-    out, err = child.communicate("go\n", timeout=TILE16_TIMEOUT)
-    sys.stdout.write(out)
-    sys.stderr.write(err[-4000:])
-    check(child.returncode == 0 and "tile16 (g): ok" in out,
-          f"the 16x16 phase failed (exit {child.returncode})")
-    print(f"tile16 (g) [{card}]: phase {time.perf_counter() - t0:.1f} s "
-          "(the child's start overlapped the phases before)")
+def phase_tiles(card, children):
+    """Lets each tile-shape child run in turn and checks it said so."""
+    for (tx, ty), child in children.items():
+        t0 = time.perf_counter()
+        out, err = child.communicate("go\n", timeout=TILE_TIMEOUT)
+        sys.stdout.write(out)
+        sys.stderr.write(err[-4000:])
+        tag = f"tile{tx}x{ty} (g)"
+        check(child.returncode == 0 and f"{tag}: ok" in out,
+              f"the {tx}x{ty} phase failed (exit {child.returncode})")
+        print(f"{tag} [{card}]: phase {time.perf_counter() - t0:.1f} s (the "
+              "child's start overlapped the phases before)")
 
 
-def tile16_main():
-    """(g) K1 and K2 in each form at 16x16 tiles against their plain
-    versions, on a
-    seeded 256x256 scene: C = 7 channels as the asset's (rgb, depth, two
-    segments, ones; Cg = 6), a cotangent from a generator seeded 3."""
+def tile_main(tx, ty):
+    """(g) K1, and where the tile is whole warps K2, in each form at tiles
+    of tx x ty against their plain versions, on a seeded 256x256 scene: C =
+    7 channels as the asset's (rgb, depth, two segments, ones; Cg = 6), a
+    cotangent from a generator seeded 3; and the warp map's check at the
+    shape."""
     import numpy as np
     import torch
     if not torch.cuda.is_available():
@@ -1529,15 +1540,20 @@ def tile16_main():
     from gsplat_tpu_torch.ops import composite_cuda as comp
     from gsplat_tpu_torch.ops import preprocess as pre_lib
     from gsplat_tpu_torch.tools import workload as wl
-    check(pre_lib.TILE_X == pre_lib.TILE_Y == 16 and comp.TILE_PIX == 256,
-          "tile16: GSPLAT_TILE_X/Y=16 did not reach the port")
+    tag = f"tile{tx}x{ty}"
+    check((pre_lib.TILE_X, pre_lib.TILE_Y) == (tx, ty)
+          and comp.TILE_PIX == tx * ty,
+          f"{tag}: GSPLAT_TILE_X/Y did not reach the port")
     dev = torch.device("cuda")
     torch.zeros(1, device=dev)
     _kernels.lib()
     if sys.stdin.readline().strip() != "go":
         return 3
     t0 = time.perf_counter()
-    n, S = TILE16_GAUSSIANS, TILE16_SIZE
+    wmap = comp.warp_map_errors(tx, ty)
+    check(wmap == {"outside": 0, "misowned": 0},
+          f"{tag}: the warp map and the cull's boxes disagree: {wmap}")
+    n, S = TILE_GAUSSIANS, TILE_SIZE
     rng = np.random.default_rng(16)
     model = params_from_numpy(dict(
         xyz=rng.standard_normal((n, 3)) * 1.2,
@@ -1549,7 +1565,7 @@ def tile16_main():
         segment=rng.standard_normal((n, NUM_CLASS))), device=dev)
     cam = Camera(colmap_id=0, R=np.eye(3), T=np.array([0.0, 0.0, 4.0]),
                  FoVx=math.radians(60.0), FoVy=math.radians(60.0),
-                 image=np.zeros((3, S, S), np.float32), image_name="t16",
+                 image=np.zeros((3, S, S), np.float32), image_name="tile",
                  uid=0)
     p = model.params
     pre = pre_lib.preprocess(
@@ -1558,9 +1574,9 @@ def tile16_main():
         *[torch.as_tensor(m, device=dev) for m in (
             cam.world_view_transform, cam.full_proj_transform,
             cam.camera_center)], cam.tan_fovx, cam.tan_fovy, S, S)
-    gx = gy = S // 16
+    gx, gy = (S + tx - 1) // tx, (S + ty - 1) // ty
     bins = bin_lib.bin_gaussians(pre, gx, gy, 1 << 19)
-    check(not bool(bins.overflow), "tile16: binning overflowed")
+    check(not bool(bins.overflow), f"{tag}: binning overflowed")
     feats = torch.cat([pre.rgb, pre.depths[:, None],
                        T.segment_activation(p.segment),
                        torch.ones_like(pre.depths[:, None])], dim=1)
@@ -1573,6 +1589,7 @@ def tile16_main():
     gen.manual_seed(3)
     d_packed = torch.randn((gx * gy, C + 2, comp.TILE_PIX), generator=gen,
                            device=dev)
+    with_k2 = comp.TILE_PIX % 32 == 0
     lines = []
     for name in ("f32", *FORMS):
         form = wl.form_of(name)
@@ -1583,29 +1600,32 @@ def tile16_main():
         err1, over, nc_diff = compare_k1(comp, out, out_p, C, S, S)
         check(sum(over.values()) == 0 and nc_diff == 0
               and bool(torch.isfinite(out).all()),
-              f"tile16 K1 {name}: kernel disagrees with its plain version "
+              f"{tag} K1 {name}: kernel disagrees with its plain version "
               f"({json.dumps(over)}, n_contrib at {nc_diff} pixels)")
-        k2 = (tab, gid, starts, counts, gx, out, d_packed, Cg, form)
-        d_k = comp.composite_backward(*k2)
-        d_p = comp.composite_backward_plain(*k2)
-        check(bool(torch.isfinite(d_k[:, :6]).all()),
-              f"tile16 K2 {name}: non-finite gradient row")
-        check(float(d_k[gid >= tab.shape[0]].abs().max()) == 0.0,
-              f"tile16 K2 {name}: pad slots carry gradient")
-        err, worst, bad = wl.compare_form_rows(d_k, d_p, Cg,
-                                               form.feat_packed)
-        check(bad == 0, f"tile16 K2 {name}: {bad} values outside tolerance "
-              f"(worst column {worst:.3g} of its largest)")
-        check(torch.equal(comp.composite_backward(*k2), d_k),
-              f"tile16 K2 {name}: two launches gave different bits")
-        lines.append(f"{name} K1 max |diff| {err1:.3g}, n_contrib equal; K2 "
-                     f"max |diff| {err:.3g} (worst column {worst:.2e} of its "
-                     f"largest), rows written "
+        line = f"{name} K1 max |diff| {err1:.3g}, n_contrib equal"
+        if with_k2:
+            k2 = (tab, gid, starts, counts, gx, out, d_packed, Cg, form)
+            d_k = comp.composite_backward(*k2)
+            d_p = comp.composite_backward_plain(*k2)
+            check(bool(torch.isfinite(d_k[:, :6]).all()),
+                  f"{tag} K2 {name}: non-finite gradient row")
+            check(float(d_k[gid >= tab.shape[0]].abs().max()) == 0.0,
+                  f"{tag} K2 {name}: pad slots carry gradient")
+            err, worst, bad = wl.compare_form_rows(d_k, d_p, Cg,
+                                                   form.feat_packed)
+            check(bad == 0, f"{tag} K2 {name}: {bad} values outside "
+                  f"tolerance (worst column {worst:.3g} of its largest)")
+            check(torch.equal(comp.composite_backward(*k2), d_k),
+                  f"{tag} K2 {name}: two launches gave different bits")
+            line += (f"; K2 max |diff| {err:.3g} (worst column {worst:.2e} "
+                     "of its largest), rows written "
                      f"{int((d_k != 0).any(dim=1).sum())}")
-    print(f"tile16 (g): {n} gaussians at {S}x{S}, {gx * gy} tiles of 16x16, "
-          f"{int(bins.num_rendered)} instances; K1 and K2 against their plain "
-          "versions: " + "; ".join(lines))
-    print(f"tile16 (g): ok in {time.perf_counter() - t0:.1f} s")
+        lines.append(line)
+    print(f"{tag} (g): {n} gaussians at {S}x{S}, {gx * gy} tiles of "
+          f"{tx}x{ty}, {int(bins.num_rendered)} instances; warp map sound; "
+          f"K1{' and K2' if with_k2 else ''} against the plain versions: "
+          + "; ".join(lines))
+    print(f"{tag} (g): ok in {time.perf_counter() - t0:.1f} s")
     return 0
 
 
@@ -1683,7 +1703,13 @@ def main():
           "C = 3, 5, 7 (f32, quad, packed, packed quad): " + "; ".join(
               f"C={C} form {b}: {k1_ptxas(C, b)}" for C in (3, 5, 7)
               for b in ((0, 1, 2, 3) if C == 3 else (0, 1, 6, 7))))
-    tile16 = start_tile16()
+    tile_children = {shape: start_tile_child(*shape) for shape in TILE_SHAPES}
+    wmap = {f"{x}x{y}": comp.warp_map_errors(x, y) for x, y in WARP_MAP_SHAPES}
+    check(all(v == {"outside": 0, "misowned": 0} for v in wmap.values()),
+          "the warp map K1 and K2 share disagrees with the cull's boxes: "
+          + json.dumps(wmap))
+    print("warp map: each pixel owned by one thread, inside its warp's box, "
+          f"at tiles of {', '.join(wmap)}")
 
     # ---- 2. scene, binning and K1's inputs (tools.workload) ----------------
     w = wl.asset_workload(dev, pair_counts=False)
@@ -1767,10 +1793,13 @@ def main():
     # the (pixel, instance) pairs these inputs need, from the plain version
     t0 = time.perf_counter()
     w.pairs = wl.k1_pair_counts(*k1_args, packed_p[:, C + 1])
+    w.culled = wl.k1_culled_pairs(*k1_args, packed_p[:, C + 1])
     tested, contributing, stopping = (w.pairs[k] for k in (
         "tested", "composited", "stopping"))
-    print(f"K1 pairs: {tested} tested, {contributing} composited, "
-          f"{stopping} stopping ({time.perf_counter() - t0:.1f} s to count)")
+    print(f"K1 pairs: {tested} tested without the per-warp cull, "
+          f"{contributing} composited, {stopping} stopping; after the cull "
+          f"{json.dumps(w.culled)} ({time.perf_counter() - t0:.1f} s to "
+          "count)")
 
     # ---- 5. K4 and K2 against their plain versions -------------------------
     k4 = phase_k4(torch, seg_lib, card, gid_sorted, P, comp.ATTR_BASE + C - 1)
@@ -1915,7 +1944,7 @@ def main():
     form_launches = phase_form_paths(torch, np, card, w)
 
     # ---- 12. (g) K1 and K2 at 16x16 tiles ----------------------------------
-    phase_tile16(card, tile16)
+    phase_tiles(card, tile_children)
 
     # bounds: each input read once, each output written once
     k3_bytes = 3 * 4 * S + 2 * 4 * cap
@@ -1923,12 +1952,15 @@ def main():
     k3_bound, k3_by = wl.bound_ms(k3_bytes, k3_ops)
     k1_bytes = (table.numel() * 4 + int(counts.sum()) * 4 + 2 * 4 * num_tiles
                 + packed_k.numel() * 4)
-    k1_ops = wl.k1_ops(w.pairs, C)
+    k1_ops = wl.k1_ops(w.culled, C)
     k1_bound, k1_by = wl.bound_ms(k1_bytes, k1_ops)
     print(f"K3 bound: {k3_bytes} bytes, {k3_ops} ops; K1 bound: {k1_bytes} "
-          f"bytes, {k1_ops} ops ({wl.K1_TEST_OPS} per tested pair, "
-          f"{wl.K1_STEP_OPS} more per composited or stopping pair, {1 + 2 * C} "
-          "more per composited pair)")
+          f"bytes, {k1_ops} ops ({wl.K1_TEST_OPS} per live pair after the "
+          f"per-warp cull, {wl.K1_STEP_OPS} more per composited or stopping "
+          f"pair, {1 + 2 * C} more per composited pair; the cull's "
+          f"{wl.CULL_INSTANCE_OPS} per instance a tile needs, "
+          f"{wl.CULL_WARP_OPS} per instance and warp, {wl.CULL_EDGE_OPS} more "
+          "where the warp's box does not hold the mean)")
     kernels = [
         {"name": "K3 expand", "route": "cuda",
          "source": "gsplat_tpu_torch/csrc/expand.cu",
@@ -1973,4 +2005,6 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(tile16_main() if sys.argv[1:] == ["--tile16"] else main())
+    if sys.argv[1:2] == ["--tile"] and len(sys.argv) == 3:
+        sys.exit(tile_main(*map(int, sys.argv[2].split("x"))))
+    sys.exit(main())

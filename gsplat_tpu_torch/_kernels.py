@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -107,6 +108,8 @@ SIGNATURES = {
     "gsplat_probe_gather": (_I, _VP, _I, _I, _VP, _I, _VP, _VP),
     # variant, x, n, n_programs, n_iters, out, stream
     "gsplat_probe_dtype": (_I, _VP, _I, _I, _I, _VP, _VP),
+    # tile_x, tile_y, out [npix + 1] int32 (zeroed), stream
+    "gsplat_warp_map_check": (_I, _I, _VP, _VP),
 }
 
 _lock = threading.Lock()
@@ -137,6 +140,33 @@ def _stale() -> bool:
     built = os.path.getmtime(LIB_PATH)
     return any(os.path.getmtime(os.path.join(CSRC_DIR, f)) > built
                for f in os.listdir(CSRC_DIR))
+
+
+def ptxas_entries(report: str, pattern) -> dict:
+    """{match: (registers, spill store bytes)} of each kernel entry of a
+    ``-Xptxas -v`` report whose mangled name ``pattern`` (a compiled regex)
+    matches, keyed by the match's groups (its whole text without groups).
+    An entry's lines run from its "Compiling entry" line to its "Used N
+    registers" line."""
+    out = {}
+    key = None
+    for line in report.splitlines():
+        if "Compiling entry" in line:
+            m = pattern.search(line)
+            key = (m.groups() if pattern.groups else m[0]) if m else None
+            if key is not None:
+                out[key] = [None, None]
+            continue
+        if key is None:
+            continue
+        regs = re.search(r"Used (\d+) registers", line)
+        spill = re.search(r"(\d+) bytes spill stores", line)
+        if spill:
+            out[key][1] = int(spill[1])
+        if regs:                        # the entry's last line
+            out[key][0] = int(regs[1])
+            key = None
+    return {k: tuple(v) for k, v in out.items()}
 
 
 def build() -> str:

@@ -141,8 +141,11 @@
 
 namespace {
 
-// The warp map (kPix, kBlockX x kBlockY, warp_blocks) and the per-warp cull
-// (warps_that_may_composite) are composite_common.cuh's, K1's too.
+// The warp map (thread_pixel0) and the per-warp cull over each warp's box
+// (warps_that_may_composite, warp_box) are composite_common.cuh's, K1's too;
+// gsplat_warp_map_check (composite_fwd.cu) holds the two to each other.  The
+// staging loops are written out in the kernel below (K1's stage_instances
+// made K2 3.3% slower).
 constexpr int kMaxBwdThreads = kMaxWalkThreads;
 constexpr int kMaxBwdWarps = kMaxBwdThreads / 32;
 constexpr int kBwdBatch = 128;     // instances staged per round, at most
@@ -249,14 +252,9 @@ composite_backward_kernel(const float* __restrict__ table, int P, int C,
   const float* dpk_t = d_packed + tile_off;
 
   // this thread's pixels pix0 .. pix0 + 3 of the tile, all inside it or
-  // none (npix % 4 == 0): in the warp's block, or 128 a warp in row-major
-  // order where the tile does not divide into blocks (thread_pixel0's map)
-  int pix0 = tid * kPix;
-  if (warp_blocks(tile_x, tile_y)) {
-    const int bpr = tile_x / kBlockX;
-    pix0 = (warp / bpr * kBlockY + (lane >> 2)) * tile_x +
-           warp % bpr * kBlockX + (lane & 3) * kPix;
-  }
+  // none (npix % 32 == 0): in the warp's block, or 128 a warp in row-major
+  // order where the tile does not divide into blocks
+  const int pix0 = thread_pixel0(tile_x, tile_y, tid);
   const bool live = pix0 < npix;
   float px[kPix], py[kPix], qx[kPix], qy[kPix], qxx[kPix], qyy[kPix],
       qxy[kPix];

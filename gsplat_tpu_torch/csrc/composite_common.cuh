@@ -32,23 +32,45 @@ __device__ __forceinline__ bool warp_blocks(int tile_x, int tile_y) {
   return tile_x % kBlockX == 0 && tile_y % kBlockY == 0;
 }
 
-// The first of thread tid's pixels (tile-local, row-major): all kPix of them
-// lie inside the tile or none (npix % kPix == 0).
+// The first of thread tid's pixels (tile-local, row-major); the thread owns
+// it and the kPix - 1 after it, those of them inside the tile.
 __device__ __forceinline__ int thread_pixel0(int tile_x, int tile_y,
                                              int tid) {
   const int lane = tid & 31;
   const int warp = tid >> 5;
+  int pix0 = tid * kPix;
   if (warp_blocks(tile_x, tile_y)) {
     const int bpr = tile_x / kBlockX;
-    return (warp / bpr * kBlockY + (lane >> 2)) * tile_x +
+    pix0 = (warp / bpr * kBlockY + (lane >> 2)) * tile_x +
            warp % bpr * kBlockX + (lane & 3) * kPix;
   }
-  return tid * kPix;
+  return pix0;
 }
 
 // The threads of a tile of npix pixels: kPix a thread, in whole warps.
 __host__ __device__ inline int walk_threads(int npix) {
   return (npix + 32 * kPix - 1) / (32 * kPix) * 32;
+}
+
+// The tile-local box [x0, x1] x [y0, y1] that holds warp w's pixels as
+// thread_pixel0 lays them out (blocks: warp_blocks of the tile): its block,
+// or, in row-major order, its pixels' rows, whole unless it has one.
+__device__ __forceinline__ void warp_box(int w, bool blocks, int tile_x,
+                                         int npix, int& x0, int& x1, int& y0,
+                                         int& y1) {
+  if (blocks) {
+    x0 = w % (tile_x / kBlockX) * kBlockX;
+    y0 = w / (tile_x / kBlockX) * kBlockY;
+    x1 = x0 + kBlockX - 1;
+    y1 = y0 + kBlockY - 1;
+  } else {
+    const int p0 = w * 32 * kPix;
+    const int p1 = min(p0 + 32 * kPix, npix) - 1;
+    y0 = p0 / tile_x;
+    y1 = p1 / tile_x;
+    x0 = y0 == y1 ? p0 - y0 * tile_x : 0;
+    x1 = y0 == y1 ? p1 - y1 * tile_x : tile_x - 1;
+  }
 }
 
 // The least of q(x, y) = a x^2 + 2 b x y + c y^2 (positive definite) over the
@@ -98,22 +120,8 @@ __device__ __forceinline__ unsigned warps_that_may_composite(
   const bool blocks = warp_blocks(tile_x, tile_y);
   unsigned may = 0u;
   for (int j = 0; j < nwarps; ++j) {
-    const int w = w0 + j;
-    // the warp's pixels' box (tile-local), as the kernels lay them out
     int x0, x1, y0, y1;
-    if (blocks) {
-      x0 = w % (tile_x / kBlockX) * kBlockX;
-      y0 = w / (tile_x / kBlockX) * kBlockY;
-      x1 = x0 + kBlockX - 1;
-      y1 = y0 + kBlockY - 1;
-    } else {
-      const int p0 = w * 32 * kPix;
-      const int p1 = min(p0 + 32 * kPix, npix) - 1;
-      y0 = p0 / tile_x;
-      y1 = p1 / tile_x;
-      x0 = y0 == y1 ? p0 - y0 * tile_x : 0;
-      x1 = y0 == y1 ? p1 - y1 * tile_x : tile_x - 1;
-    }
+    warp_box(w0 + j, blocks, tile_x, npix, x0, x1, y0, y1);
     const float q = quad_min_box(a, b, c, xr - x1, xr - x0, yr - y1, yr - y0);
     if (!(q > limit)) may |= 1u << j;
   }

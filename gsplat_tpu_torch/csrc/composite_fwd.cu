@@ -1,8 +1,35 @@
 // K1 — forward alpha composite: the C entry, which launches the kernel of
 // composite_fwd.cuh (its comments say what it computes, its design and its
 // bound) in its production form, kFwdBase, compiled for C = 1..8 and for a
-// runtime C; and the CTAs an SM holds of each.
+// runtime C; the CTAs an SM holds of each; and a check of the warp map K1
+// and K2 share against the boxes their cull bounds.
 #include "composite_fwd.cuh"
+
+namespace {
+
+// Per pixel of a tile, the threads of the walk's warp map (thread_pixel0)
+// that own it, and in bad[0] the pixels a thread owns outside its warp's
+// box (warp_box): the cull drops a warp's instance only where nothing can
+// reach that box.
+__global__ void warp_map_check_kernel(int tile_x, int tile_y, int* owners,
+                                      int* bad) {
+  const int npix = tile_x * tile_y;
+  const int tid = threadIdx.x;
+  const int pix0 = thread_pixel0(tile_x, tile_y, tid);
+  int x0, x1, y0, y1;
+  warp_box(tid >> 5, warp_blocks(tile_x, tile_y), tile_x, npix, x0, x1, y0,
+           y1);
+  for (int i = 0; i < kPix; ++i) {
+    const int p = pix0 + i;
+    if (p >= npix) continue;
+    atomicAdd(owners + p, 1);
+    const int x = p % tile_x;
+    const int y = p / tile_x;
+    if (x < x0 || x > x1 || y < y0 || y > y1) atomicAdd(bad, 1);
+  }
+}
+
+}  // namespace
 
 extern "C" int gsplat_composite_forward(const void* table, int P, int C,
                                         const void* gauss_id,
@@ -52,4 +79,21 @@ extern "C" int gsplat_composite_forward_occupancy(int C, int tile_x,
     default: GSPLAT_K1_OCC(0);
   }
 #undef GSPLAT_K1_OCC
+}
+
+// The warp map's check at a tile shape: out [npix + 1] int32 on the card,
+// zeroed by the caller; afterwards out[0] holds the pixels outside their
+// warp's box and out[1 + p] the threads that own pixel p (1 each where the
+// map is sound).
+extern "C" int gsplat_warp_map_check(int tile_x, int tile_y, void* out,
+                                     void* stream) {
+  const int npix = tile_x * tile_y;
+  if (tile_x <= 0 || tile_y <= 0 || npix > kMaxThreads) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int* o = static_cast<int*>(out);
+  warp_map_check_kernel<<<1, walk_threads(npix), 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      tile_x, tile_y, o + 1, o);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -24,7 +24,10 @@
 // Design.  K2's warp map and cull (composite_common.cuh), so the two
 // kernels walk one layout.  A thread owns kPix = 4 consecutive pixels of a
 // tile row, and a warp a 16x8 block of them where the tile divides into such
-// blocks (32x32: 8 warps; 16x16: 2), else 128 pixels in row-major order.  A
+// blocks (32x32: 8 warps; 16x16: 2), else 128 pixels in row-major order
+// (where the row width is not a multiple of 4 a thread's pixels may cross a
+// row, and the last thread's may reach past the tile: a kernel of its own,
+// kCross, gives each pixel its own coordinates and stores word by word).  A
 // CTA runs at most kFwdCtaWarps = 4 of a tile's warps (fwd_split: two CTAs
 // of 128 threads at 32x32, one of 64 at 16x16), each CTA walking the tile's
 // whole instance list for its own warps, so that a heavy tile's walk runs on
@@ -236,8 +239,9 @@ inline size_t fwd_smem_bytes(int C, bool quad) {
 
 // The kernel body.  CT > 0: compile-time channel count, accumulators in
 // registers; CT == 0: runtime channel count C, accumulated in global memory.
-// F: the form (Form bits), 0 for f32.
-template <int CT, int V, int F>
+// F: the form (Form bits), 0 for f32.  kCross: a tile row width that is not
+// a multiple of kPix (K1 itself at a runtime C only).
+template <int CT, int V, int F, bool kCross = false>
 __device__ __forceinline__ void composite_forward_body(
     const float* __restrict__ table, int P, int C,
     const int* __restrict__ gauss_id, const int* __restrict__ starts,
@@ -254,6 +258,8 @@ __device__ __forceinline__ void composite_forward_body(
   constexpr bool kLast = V != kNoMinmax && V != kAlphaOnly && !kStrip;
   constexpr bool kStageEach = V != kComputeResident;
   constexpr float kPowerCut = kQuad ? kQuadPowerCut : 0.f;
+  static_assert(!kCross || (V == kFwdBase && CT == 0),
+                "rows that cross take K1's runtime-C kernel only");
 
   extern __shared__ float smem[];
   const int nc = CT > 0 ? CT : C;
@@ -284,8 +290,9 @@ __device__ __forceinline__ void composite_forward_body(
   const int count = counts[t];
   float* out_t = out + static_cast<size_t>(t) * (nc + 2) * npix;
 
-  // this thread's pixels pix0 .. pix0 + 3, in one row of the tile (the host
-  // checks tile_x % kPix == 0), all inside it or none
+  // this thread's pixels pix0 .. pix0 + 3: in one row of the tile, all
+  // inside it or none (tile_x % kPix == 0), or, kCross, each in its own row
+  // and the last thread's partly past the tile
   const int pix0 = thread_pixel0(tile_x, tile_y, w0 * 32 + tid);
   const bool inside = pix0 < npix;
   const int lx = pix0 % tile_x;
@@ -300,6 +307,17 @@ __device__ __forceinline__ void composite_forward_body(
   float px[kPix];
 #pragma unroll
   for (int i = 0; i < kPix; ++i) px[i] = static_cast<float>(ox + lx + i);
+  // kCross: pixel i's own tile-local coordinates and centre row
+  float cx[kPix], cy[kPix], cpy[kPix];
+  if constexpr (kCross) {
+#pragma unroll
+    for (int i = 0; i < kPix; ++i) {
+      cx[i] = static_cast<float>((pix0 + i) % tile_x);
+      cy[i] = static_cast<float>((pix0 + i) / tile_x);
+      px[i] = static_cast<float>(ox) + cx[i];
+      cpy[i] = static_cast<float>(oy) + cy[i];
+    }
+  }
 
   constexpr int kAcc = kOneChannel ? 1 : (CT > 0 ? CT : 1);
   constexpr bool kGlobalAcc = CT == 0 && !kOneChannel;
@@ -310,13 +328,16 @@ __device__ __forceinline__ void composite_forward_body(
   for (int i = 0; i < kPix; ++i) {
 #pragma unroll
     for (int c = 0; c < kAcc; ++c) acc[i][c] = 0.f;
-    T[i] = inside ? 1.f : -1.f;  // a pixel past the tile is done from the start
+    // a pixel past the tile is done from the start
+    T[i] = (kCross ? pix0 + i < npix : inside) ? 1.f : -1.f;
     last[i] = 0;
   }
   if (kGlobalAcc && inside) {
     for (int c = 0; c < nc; ++c) {
 #pragma unroll
-      for (int i = 0; i < kPix; ++i) out_t[c * npix + pix0 + i] = 0.f;
+      for (int i = 0; i < kPix; ++i) {
+        if (!kCross || pix0 + i < npix) out_t[c * npix + pix0 + i] = 0.f;
+      }
     }
   }
 
@@ -356,13 +377,18 @@ __device__ __forceinline__ void composite_forward_body(
 #pragma unroll
         for (int i = 0; i < kPix; ++i) {
           float power;
-          if constexpr (kQuad) {
+          if constexpr (kQuad && kCross) {
+            power = quad_power(s_coef + k * kCoef, cx[i], cy[i],
+                               cx[i] * cx[i], cy[i] * cy[i], cx[i] * cy[i]);
+          } else if constexpr (kQuad) {
             const float qx = qx0 + static_cast<float>(i);
             power = quad_power(s_coef + k * kCoef, qx, qy, qx * qx, qyy,
                                qx * qy);
           } else {
             const float dx = r[0] - px[i];
-            power = -0.5f * (r[2] * dx * dx + r[4] * dy * dy) - r[3] * dx * dy;
+            const float dyi = kCross ? r[1] - cpy[i] : dy;
+            power = -0.5f * (r[2] * dx * dx + r[4] * dyi * dyi) -
+                    r[3] * dx * dyi;
           }
           const float G = V == kNoExp ? 1.f + power : exp2f(power * kLog2e);
           alpha[i] = fminf(kAlphaMax, r[5] * G);
@@ -424,10 +450,18 @@ __device__ __forceinline__ void composite_forward_body(
 
   if (!inside) return;
   // four consecutive words per row, 16-byte aligned (npix and pix0 are
-  // multiples of 4)
+  // multiples of 4); kCross, word by word, those inside the tile
   auto put = [&](int rowi, float a0, float a1, float a2, float a3) {
-    *reinterpret_cast<float4*>(out_t + rowi * npix + pix0) =
-        make_float4(a0, a1, a2, a3);
+    float* o = out_t + rowi * npix + pix0;
+    if constexpr (kCross) {
+      const float a[kPix] = {a0, a1, a2, a3};
+#pragma unroll
+      for (int i = 0; i < kPix; ++i) {
+        if (pix0 + i < npix) o[i] = a[i];
+      }
+    } else {
+      *reinterpret_cast<float4*>(o) = make_float4(a0, a1, a2, a3);
+    }
   };
   static_assert(kPix == 4, "the output stores are float4");
   if (kOneChannel) {
@@ -451,27 +485,40 @@ __device__ __forceinline__ void composite_forward_body(
 template <int F>
 constexpr int kFwdMinBlocks = (F & kFormQuad) ? 5 : 6;
 
-template <int CT, int V, int F = 0>
+template <int CT, int V, int F = 0, bool kCross = false>
 __global__ void __launch_bounds__(kFwdCtaThreads, kFwdMinBlocks<F>)
 composite_forward_kernel(const float* __restrict__ table, int P, int C,
                          const int* __restrict__ gauss_id,
                          const int* __restrict__ starts,
                          const int* __restrict__ counts, int grid_x,
                          int tile_x, int tile_y, float* __restrict__ out) {
-  composite_forward_body<CT, V, F>(table, P, C, gauss_id, starts, counts,
-                                   grid_x, tile_x, tile_y, out);
+  composite_forward_body<CT, V, F, kCross>(table, P, C, gauss_id, starts,
+                                           counts, grid_x, tile_x, tile_y,
+                                           out);
 }
 
 // Checks what the kernel takes (cudaErrorInvalidValue otherwise): a tile of
-// at most kMaxThreads pixels in rows of whole kPix groups, and a batch whose
-// shared memory fits a block.
+// at most kMaxThreads pixels and a batch whose shared memory fits a block.
 inline int forward_shape_error(int C, int tile_x, int tile_y, bool quad) {
   const int npix = tile_x * tile_y;
   if (C < 1 || tile_x <= 0 || tile_y <= 0 || npix > kMaxThreads ||
-      tile_x % kPix != 0 || fwd_smem_bytes(C, quad) > kMaxSmem) {
+      fwd_smem_bytes(C, quad) > kMaxSmem) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return 0;
+}
+
+// The kernel of (CT, V, F) for rows of tile_x pixels: where tile_x is not a
+// multiple of kPix, K1's runtime-C kernel whose threads' pixels cross rows
+// (null for a probe's variant, which takes whole kPix groups only).
+template <int CT, int V, int F>
+auto forward_kernel(int tile_x) -> decltype(&composite_forward_kernel<CT, V, F>) {
+  if (tile_x % kPix == 0) return composite_forward_kernel<CT, V, F>;
+  if constexpr (V == kFwdBase) {
+    return composite_forward_kernel<0, V, F, true>;
+  } else {
+    return nullptr;
+  }
 }
 
 template <int CT, int V, int F = 0>
@@ -482,7 +529,8 @@ int launch_forward(const float* table, int P, int C, const int* gauss_id,
   constexpr bool quad = (F & kFormQuad) != 0;
   if (const int e = forward_shape_error(C, tile_x, tile_y, quad)) return e;
   const size_t smem = fwd_smem_bytes(C, quad);
-  const auto kernel = composite_forward_kernel<CT, V, F>;
+  const auto kernel = forward_kernel<CT, V, F>(tile_x);
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -501,7 +549,8 @@ int forward_occupancy(int C, int tile_x, int tile_y) {
   constexpr bool quad = (F & kFormQuad) != 0;
   if (forward_shape_error(C, tile_x, tile_y, quad)) return 0;
   const size_t smem = fwd_smem_bytes(C, quad);
-  const auto kernel = composite_forward_kernel<CT, V, F>;
+  const auto kernel = forward_kernel<CT, V, F>(tile_x);
+  if (kernel == nullptr) return 0;
   if (smem > 48 * 1024 &&
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(smem)) != cudaSuccess) {

@@ -10,20 +10,24 @@
 //
 // What it computes (the plain versions in gsplat_tpu_torch/tools/probes.py
 // define every output):
-//   load_only         K1's staging (composite_fwd.cuh::stage_instances,
-//                     with a tile's 256 threads, the masks of its 8 warps):
-//                     each tile's
-//                     batches of 128 instances, their [6+C] rows through
-//                     their gaussian ids and their cull masks, into shared
-//                     memory; then one add per batch and output word: word p
-//                     adds staged float p of the batch (row-major [nb][6+C],
-//                     zero past the batch).  Output [T, TILE_PIX], the sums.
-//                     `limits` (optional)
-//                     cuts tile t to its first limits[t] instances, the
-//                     batches K1 itself stages before its early exit, so the
-//                     probe reads the bytes K1 reads.
-//   load_only_4tiles  the same, one CTA walking 4 consecutive tiles and
-//                     carrying one sum: output [ceil(T / 4), TILE_PIX].
+//   load_only         K1's staging (composite_fwd.cuh::stage_instances),
+//                     on K1's CTAs: each tile is split as K1 splits it
+//                     (fwd_split, fwd_threads: two CTAs of 128 threads at
+//                     32x32), and each CTA stages the tile's batches of 128
+//                     instances, their [6+C] rows through their gaussian
+//                     ids and the cull masks of its own warps, into shared
+//                     memory; then one add per batch and output word: word
+//                     p, which the CTA's thread that owns pixel p in K1
+//                     keeps, adds staged float p of the batch (row-major
+//                     [nb][6+C], zero past the batch).  Output [T,
+//                     TILE_PIX], the sums.  `limits` [T, split] (optional)
+//                     cuts the CTA of tile t that runs warps 4 s .. 4 s + 3
+//                     to its first limits[t, s] instances, the batches that
+//                     CTA of K1 stages before its early exit, so the probe
+//                     reads the bytes K1 reads.
+//   load_only_4tiles  the same, each CTA walking its part of 4 consecutive
+//                     tiles and carrying one sum: output [ceil(T / 4),
+//                     TILE_PIX].
 //   compute_resident  K1's variant of that name (composite_fwd.cuh): K1
 //                     with each tile's first batch staged once and computed
 //                     for every batch.  Output K1's [T, C+2, TILE_PIX].
@@ -66,7 +70,7 @@ enum LoadVariant {
 };
 
 template <int CT, int TILES>
-__global__ void __launch_bounds__(kMaxWalkThreads)
+__global__ void __launch_bounds__(kFwdCtaThreads)
 probe_load_kernel(const float* __restrict__ table, int P, int C,
                   const int* __restrict__ gauss_id,
                   const int* __restrict__ starts,
@@ -80,14 +84,22 @@ probe_load_kernel(const float* __restrict__ table, int P, int C,
   unsigned* s_may = reinterpret_cast<unsigned*>(smem + kFwdBatch * row);
   const int tid = threadIdx.x;
   const int nthreads = blockDim.x;
+  const int nwarps = nthreads >> 5;
+  // K1's split: this CTA runs warps w0 .. w0 + nwarps - 1 of its tiles
+  const int split = fwd_split(npix);
+  const int group = blockIdx.x / split;
+  const int part = blockIdx.x - group * split;
+  const int w0 = part * nwarps;
+  const int pix0 = thread_pixel0(tile_x, tile_y, w0 * 32 + tid);
   float acc[kPix];
 #pragma unroll
   for (int j = 0; j < kPix; ++j) acc[j] = 0.f;
   for (int i = 0; i < TILES; ++i) {
-    const int t = blockIdx.x * TILES + i;
+    const int t = group * TILES + i;
     if (t >= num_tiles) break;  // the same for the whole CTA
     const int start = starts[t];
-    const int count = limits != nullptr ? min(limits[t], counts[t])
+    const int count = limits != nullptr ? min(limits[t * split + part],
+                                              counts[t])
                                         : counts[t];
     for (int b0 = 0; b0 < count; b0 += kFwdBatch) {
       const int nb = min(kFwdBatch, count - b0);
@@ -95,19 +107,19 @@ probe_load_kernel(const float* __restrict__ table, int P, int C,
       stage_instances<false, false>(
           table, P, row, row, row - kGeo, gauss_id + start + b0, nb, tid,
           nthreads, (t % grid_x) * tile_x, (t / grid_x) * tile_y, tile_x,
-          tile_y, npix, 0, nthreads >> 5, s_rows, s_may, nullptr);
+          tile_y, npix, w0, nwarps, s_rows, s_may, nullptr);
       __syncthreads();
 #pragma unroll
       for (int j = 0; j < kPix; ++j) {
-        const int p = tid + j * nthreads;
+        const int p = pix0 + j;
         if (p < nb * row) acc[j] += s_rows[p];
       }
     }
   }
 #pragma unroll
   for (int j = 0; j < kPix; ++j) {
-    const int p = tid + j * nthreads;
-    if (p < npix) out[static_cast<size_t>(blockIdx.x) * npix + p] = acc[j];
+    const int p = pix0 + j;
+    if (p < npix) out[static_cast<size_t>(group) * npix + p] = acc[j];
   }
 }
 
@@ -216,18 +228,22 @@ int launch_tiles(int variant, const float* tb, int P, int C, const int* gid,
                  const int* st, const int* ct, const int* lim, int num_tiles,
                  int grid_x, int tile_x, int tile_y, float* o,
                  cudaStream_t s) {
-  const int threads = walk_threads(tile_x * tile_y);
+  // K1's CTAs: fwd_split of them a tile (or a group of 4 tiles)
+  const int npix = tile_x * tile_y;
+  const int threads = fwd_threads(npix);
+  const int split = fwd_split(npix);
   const size_t smem = fwd_smem_bytes(C, false);
   int err;
   switch (variant) {
     case kLoadOnly:
       if ((err = set_smem(probe_load_kernel<CT, 1>, smem))) return err;
-      probe_load_kernel<CT, 1><<<num_tiles, threads, smem, s>>>(
+      probe_load_kernel<CT, 1><<<num_tiles * split, threads, smem, s>>>(
           tb, P, C, gid, st, ct, lim, num_tiles, grid_x, tile_x, tile_y, o);
       break;
     case kLoadOnly4Tiles:
       if ((err = set_smem(probe_load_kernel<CT, 4>, smem))) return err;
-      probe_load_kernel<CT, 4><<<(num_tiles + 3) / 4, threads, smem, s>>>(
+      probe_load_kernel<CT, 4><<<(num_tiles + 3) / 4 * split, threads, smem,
+                                 s>>>(
           tb, P, C, gid, st, ct, lim, num_tiles, grid_x, tile_x, tile_y, o);
       break;
     default:
@@ -239,8 +255,8 @@ int launch_tiles(int variant, const float* tb, int P, int C, const int* gid,
 
 }  // namespace
 
-// load_only, load_only_4tiles and compute_resident; `limits` may be null
-// (and compute_resident ignores it).
+// load_only, load_only_4tiles and compute_resident; `limits` [num_tiles,
+// fwd_split] may be null (and compute_resident ignores it).
 extern "C" int gsplat_probe_load(int variant, const void* table, int P,
                                  int C, const void* gauss_id,
                                  const void* starts, const void* counts,

@@ -48,9 +48,11 @@ _MAX_THREADS = 1024                 # pixels a tile may have (kMaxThreads)
 _SMEM_LIMIT = 232448                # bytes of shared memory a CTA can use
 # K1's and K2's warp map (composite_common.cuh): a thread owns PIX_PER_THREAD
 # consecutive pixels of a row, a warp a WARP_BLOCK block of them where the
-# tile divides into such blocks, else 128 pixels in row-major order.
+# tile divides into such blocks, else 128 pixels in row-major order.  A CTA
+# of K1 runs FWD_CTA_WARPS warps of a tile (composite_fwd.cuh::fwd_split).
 PIX_PER_THREAD = 4
 WARP_BLOCK = (16, 8)
+FWD_CTA_WARPS = 4
 
 
 def tile_ranges(bins: BinningOut):
@@ -116,6 +118,12 @@ def pixel_warps(tile_x: int = TILE_X, tile_y: int = TILE_Y):
     if tile_x % bx == 0 and tile_y % by == 0:
         return (pix // tile_x // by) * (tile_x // bx) + pix % tile_x // bx
     return pix // (32 * PIX_PER_THREAD)
+
+
+def forward_ctas(tile_x: int = TILE_X, tile_y: int = TILE_Y):
+    """[tile_x * tile_y] int64: the CTA of K1's tile split whose warps own
+    each tile pixel (0 .. fwd_split - 1)."""
+    return pixel_warps(tile_x, tile_y) // FWD_CTA_WARPS
 
 
 def warp_boxes(tile_x: int = TILE_X, tile_y: int = TILE_Y):
@@ -393,9 +401,8 @@ def composite_forward(table, gauss_id, starts, counts, grid_x: int,
                                        form, Cg)
     req(dev.type == "cuda", f"unsupported device {dev}")
     P = table.shape[0]
-    req(TILE_PIX <= _MAX_THREADS and TILE_X % PIX_PER_THREAD == 0,
-        f"tiles of {TILE_X}x{TILE_Y}: K1 takes at most {_MAX_THREADS} pixels "
-        f"in rows of a multiple of {PIX_PER_THREAD}")
+    req(TILE_PIX <= _MAX_THREADS,
+        f"tiles of {TILE_X}x{TILE_Y}: K1 takes at most {_MAX_THREADS} pixels")
     # a batch's rows, cull masks and (mxu_power) six coefficients per
     # instance
     req(_KERNEL_BATCH * (ATTR_BASE + C + 1 + 6 * form.mxu_power) * 4
@@ -574,6 +581,21 @@ def forward_occupancy(C: int, Cg: int, form: Form = F32) -> int:
                                                         TILE_X, TILE_Y)
     _kernels.require(n > 0, f"K1{form.name}: no occupancy at C={C}, Cg={Cg}")
     return n
+
+
+def warp_map_errors(tile_x: int = TILE_X, tile_y: int = TILE_Y) -> dict:
+    """The check of the warp map K1 and K2 share against the boxes their
+    cull bounds (``csrc/composite_fwd.cu::gsplat_warp_map_check``) at a
+    tile shape, on the card: dict(outside: pixels a thread owns outside its
+    warp's box, misowned: pixels not owned by exactly one thread), both 0
+    where the cull is sound; needs a card."""
+    npix = tile_x * tile_y
+    out = torch.zeros(npix + 1, dtype=torch.int32, device="cuda")
+    _kernels.check(_kernels.lib().gsplat_warp_map_check(
+        tile_x, tile_y, out.data_ptr(), _kernels.stream_of(out)),
+        "warp_map_check")
+    out = out.cpu()
+    return dict(outside=int(out[0]), misowned=int((out[1:] != 1).sum()))
 
 
 def scrub_nonfinite(d_inst, form: Form = F32):

@@ -82,14 +82,10 @@ def build(trees: dict, out_dir: str, kernel: str = "k2") -> dict:
         report, _ = p.communicate()
         if p.returncode != 0:
             raise RuntimeError(f"nvcc failed for tree {name}\n{report}")
-        lines = report.splitlines()
-        regs = {}
-        for i, line in enumerate(lines):
-            m = pattern.search(line)
-            if m and "Compiling entry" in line:
-                regs[int(m[1]) if pattern.groups else 0] = " ".join(
-                    x.strip().replace("ptxas info    : ", "")
-                    for x in lines[i + 2:i + 4])
+        regs = {int(k[0]) if pattern.groups else 0:
+                f"{r} registers, {sp} bytes spill stores"
+                for k, (r, sp) in _kernels.ptxas_entries(report,
+                                                         pattern).items()}
         lib = ctypes.CDLL(so)
         for fn in entries:
             getattr(lib, fn).argtypes = _kernels.SIGNATURES[fn]

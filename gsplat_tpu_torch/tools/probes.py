@@ -145,6 +145,10 @@ def probe_forward(variant, table, gauss_id, starts, counts, grid_x: int):
     _kernels.require(comp.TILE_PIX <= comp._MAX_THREADS,
                      f"TILE_X*TILE_Y={comp.TILE_PIX} exceeds "
                      f"{comp._MAX_THREADS} threads")
+    _kernels.require(comp.TILE_X % comp.PIX_PER_THREAD == 0,
+                     f"P1 takes rows of a multiple of {comp.PIX_PER_THREAD} "
+                     f"pixels, not TILE_X={comp.TILE_X} (K1 alone has a "
+                     "kernel whose threads' pixels cross rows)")
     P, R = table.shape
     C = R - comp.ATTR_BASE
     # a batch's rows, cull masks and (quad_power) six coefficients each
@@ -295,18 +299,28 @@ def probe_backward(variant, table, gauss_id, starts, counts, grid_x: int,
 
 # ----------------------------------------------------------------- P3 ---
 
+def load_limits_shape(num_tiles: int):
+    """The shape of P3's ``limits``: one count per CTA of K1's tile split
+    (``composite_cuda.forward_ctas``)."""
+    return (num_tiles, int(comp.forward_ctas().max()) + 1)
+
+
 def _staged_sums(table, gauss_id, starts, counts, limits, tiles_per_cta):
-    """load_only's output: per CTA of ``tiles_per_cta`` consecutive tiles,
-    each thread's sum over the CTA's batches (in order) of the staged float
-    of its index."""
+    """load_only's output: per group of ``tiles_per_cta`` consecutive tiles,
+    word p's sum over the group's batches (in order) of the staged float of
+    its index, each tile cut to the ``limits`` of the CTA of K1's split that
+    owns pixel p."""
     dev = table.device
     P, R = table.shape
     npix = comp.TILE_PIX
     num_tiles = starts.shape[0]
     batch = comp._KERNEL_BATCH
     table_p = torch.cat([table, table.new_zeros((1, R))])
-    n = counts.long() if limits is None else torch.minimum(limits.long(),
-                                                          counts.long())
+    part = comp.forward_ctas().to(dev)                            # [npix]
+    n = counts.long()[:, None].expand(load_limits_shape(num_tiles))
+    if limits is not None:
+        n = torch.minimum(limits.long(), n)
+    n = n[:, part]                                                # [T,npix]
     n_cta = (num_tiles + tiles_per_cta - 1) // tiles_per_cta
     acc = torch.zeros((n_cta, npix), dtype=torch.float32, device=dev)
     lane = torch.arange(npix, device=dev)
@@ -317,10 +331,10 @@ def _staged_sums(table, gauss_id, starts, counts, limits, tiles_per_cta):
         t = cta * tiles_per_cta + i
         real = t < num_tiles
         tt = torch.where(real, t, 0)
-        cnt = torch.where(real, n[tt], 0)                         # [n_cta]
+        cnt = torch.where(real[:, None], n[tt], 0)                # [n_cta,npix]
         for b0 in range(0, int(cnt.max()) if n_cta else 0, batch):
-            nb = torch.clamp(cnt - b0, 0, batch)                  # [n_cta]
-            on = lane[None] < (nb * R)[:, None]                   # [n_cta,npix]
+            nb = torch.clamp(cnt - b0, 0, batch)                  # [n_cta,npix]
+            on = lane[None] < nb * R                              # [n_cta,npix]
             slot = torch.clamp(starts.long()[tt][:, None] + b0 + k[None],
                                0, max(I - 1, 0))
             g = gauss_id.long()[slot]
@@ -347,14 +361,20 @@ def probe_load(variant, table, gauss_id, starts, counts, grid_x: int,
                limits=None):
     """P3 wrapper for ``load_only`` ([T, TILE_PIX]), ``load_only_4tiles``
     ([ceil(T/4), TILE_PIX]) and ``compute_resident`` (K1's [T, C+2,
-    TILE_PIX]) on K1's inputs; ``limits`` [T] int32 (optional, the loads
-    only) cuts each tile to the instances K1 stages."""
+    TILE_PIX]) on K1's inputs; ``limits`` [T, split] int32 (optional, the
+    loads only; ``load_limits_shape``) cuts each of K1's CTAs of a tile to
+    the instances it stages."""
     v = _variant(variant, LOAD_VARIANTS)
     comp._check_tile_inputs(table, gauss_id, starts, counts, grid_x)
     dev = table.device
     num_tiles = starts.shape[0]
     if limits is not None:
-        _kernels.check_int32_vector("limits", limits, dev, num_tiles)
+        shape = load_limits_shape(num_tiles)
+        _kernels.require(
+            limits.dtype == torch.int32 and tuple(limits.shape) == shape
+            and limits.is_contiguous() and limits.device == dev,
+            f"limits must be a contiguous int32 {list(shape)} on {dev}, got "
+            f"{limits.dtype} {list(limits.shape)} on {limits.device}")
     if dev.type == "cpu":
         return probe_load_plain(variant, table, gauss_id, starts, counts,
                                 grid_x, limits)
@@ -362,6 +382,10 @@ def probe_load(variant, table, gauss_id, starts, counts, grid_x: int,
     _kernels.require(comp.TILE_PIX <= comp._MAX_THREADS,
                      f"TILE_X*TILE_Y={comp.TILE_PIX} exceeds "
                      f"{comp._MAX_THREADS} threads")
+    _kernels.require(variant != "compute_resident"
+                     or comp.TILE_X % comp.PIX_PER_THREAD == 0,
+                     f"compute_resident takes rows of a multiple of "
+                     f"{comp.PIX_PER_THREAD} pixels, not TILE_X={comp.TILE_X}")
     P, R = table.shape
     C = R - comp.ATTR_BASE
     _kernels.require(comp._KERNEL_BATCH * (R + 1) * 4 <= comp._SMEM_LIMIT,

@@ -9,7 +9,8 @@ the build's flags (``_kernels.NVCC_FLAGS``) to cubins, disassembles them
 with ``cuobjdump -sass`` and compares each kernel instruction for
 instruction.  A kernel is named by its template arguments: a form argument
 0 (``composite_forward_kernel<CT, V, 0>``) is the same kernel as the one
-without it (``<CT, V>``), and the anonymous namespace's per-file tag is
+without it (``<CT, V>``), so is a row-crossing argument false (K1's
+``<CT, V, F, false>``), and the anonymous namespace's per-file tag is
 dropped.  Prints one line per kernel and exits 1 if any differs or is
 missing from either tree; ``--kernels`` compares K1's (forward) or K2's
 (backward) alone.  Needs ``nvcc`` and ``cuobjdump``, no card.
@@ -27,7 +28,7 @@ from gsplat_tpu_torch import _kernels
 
 SOURCES = {"forward": "composite_fwd.cu", "backward": "composite_bwd.cu"}
 _KERNEL = re.compile(r"(composite_(?:forward|backward)_kernel)"
-                     r"ILi(-?\d+)ELi(-?\d+)E(?:Li(-?\d+)E)?E")
+                     r"ILi(-?\d+)ELi(-?\d+)E(?:Li(-?\d+)E)?(?:Lb(\d)E)?E")
 
 
 def _tool(name: str) -> str:
@@ -35,7 +36,7 @@ def _tool(name: str) -> str:
 
 
 def kernels(csrc: str, out_dir: str, which=tuple(SOURCES)) -> dict:
-    """{(kernel, CT, V, form): [SASS lines]} of the f32 sources in
+    """{(kernel, CT, V, form, cross): [SASS lines]} of the f32 sources in
     ``csrc`` (``which``: "forward", "backward")."""
     flags = [f for f in _kernels.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
     found = {}
@@ -53,7 +54,8 @@ def kernels(csrc: str, out_dir: str, which=tuple(SOURCES)) -> dict:
                     found[name] = lines
                 m = _KERNEL.search(line)
                 name = (None if m is None else
-                        (m[1], int(m[2]), int(m[3]), int(m[4] or 0)))
+                        (m[1], int(m[2]), int(m[3]), int(m[4] or 0),
+                         int(m[5] or 0)))
                 lines = []
             elif name is not None and line.strip().startswith("/*"):
                 lines.append(line.strip())
@@ -85,7 +87,8 @@ def main(argv=None) -> int:
             status = f"DIFFERS: {len(o)} -> {len(n)} instructions, {diff} " \
                      "lines differ"
         same &= status.startswith("identical")
-        print(f"{key[0]}<CT={key[1]}, V={key[2]}, form={key[3]}>: {status}")
+        print(f"{key[0]}<CT={key[1]}, V={key[2]}, form={key[3]}"
+              f"{', cross' if key[4] else ''}>: {status}")
     print(f"sass_diff: {len(old)} kernels in the old tree, {len(new)} in the "
           f"new; {'all identical' if same else 'NOT identical'}")
     return 0 if same else 1

@@ -59,6 +59,19 @@ K2_TEST_OPS = 18
 # adds and a mask (5), then a shift and an or (12 a word).
 UNPACK_OPS = 2
 PACK_OPS = 12
+# fp32 operations of the per-warp cull (composite_common.cuh::
+# warps_that_may_composite) that K1's bound counts: per real instance a tile
+# needs, the conic's and the values' tests and op > 0 (12), the
+# tile-relative mean and the span (6) and the limit with its margin (11);
+# per instance and warp that needs its bit, of an instance that passes those
+# tests, the box's four offsets, the test that the box holds the mean and
+# the final compare (9), and where it does not hold the mean the four edge
+# minima of quad_min_box (15 each).  The quad forms' coefficients
+# (quad_coefficients) take 20 per real instance a tile needs.
+CULL_INSTANCE_OPS = 29
+CULL_WARP_OPS = 9
+CULL_EDGE_OPS = 60
+QUAD_COEF_OPS = 20
 
 
 def k2_pair_ops(C, Cg):
@@ -94,6 +107,7 @@ class Workload:
     packed_is_k1: bool = False
     scene: dict = field(default_factory=dict)
     pairs: Optional[dict] = None
+    culled: Optional[dict] = None
 
     @property
     def C(self) -> int:
@@ -117,7 +131,8 @@ def asset_workload(device="cuda", pair_counts: bool = True) -> Workload:
     the renderer's capacity, C = 7 channels (rgb, depth, 2 segments, ones);
     K1's output on these inputs and a cotangent from a generator seeded 2
     (Cg = 6: the ones channel gets none).  ``pair_counts`` adds K1's pair
-    counts (``k1_pair_counts``) from K1's own n_contrib."""
+    counts (``k1_pair_counts``, and after the cull ``k1_culled_pairs``)
+    from K1's own n_contrib."""
     from gsplat_tpu_torch import renderer
     from gsplat_tpu_torch.core import transforms as T
     from gsplat_tpu_torch.core.cameras import Camera
@@ -166,6 +181,7 @@ def asset_workload(device="cuda", pair_counts: bool = True) -> Workload:
                             bins=bins, feats=feats, cap=cap, grid_y=gy))
     if pair_counts:
         w.pairs = k1_pair_counts(*w.k1_args, packed[:, w.C + 1])
+        w.culled = k1_culled_pairs(*w.k1_args, packed[:, w.C + 1])
     return w
 
 
@@ -267,39 +283,54 @@ def k1_pair_counts(table, gauss_id, starts, counts, grid_x, n_contrib,
 
     Before position n_contrib every instance that passes the skip tests is
     composited.  The first one that passes them after it stops the pixel;
-    a pixel with none tests its whole tile.  ``limits`` [T] int32 is the
-    number of instances K1 stages in each tile: whole batches of
-    ``_KERNEL_BATCH`` until every pixel of the tile has stopped."""
+    a pixel with none tests its whole tile.  ``tested`` counts each pixel's
+    pairs up to its stop, the walk of one thread a pixel without the cull.
+    ``limits`` [T, split] int32 is the number of instances each CTA of K1's
+    tile split (``comp.forward_ctas``) stages: whole batches of
+    ``_KERNEL_BATCH`` until every pixel of its warps has stopped."""
     big = torch.iinfo(torch.int64).max
     tested = composited = stopping = 0
-    limits = counts.clone()
+    part = comp.forward_ctas().to(table.device)
+    split = int(part.max()) + 1
+    limits = counts[:, None].repeat(1, split)
     for sl, cnt, stop, comp_n in _pixel_stops(table, gauss_id, starts, counts,
                                               grid_x, n_contrib, quad):
         composited += comp_n
         found = stop < big
         stopping += int(found.sum())
         tested += int(torch.where(found, stop + 1, cnt[:, None]).sum())
-        last_batch = torch.where(found, stop, 0).amax(dim=1) \
-            // comp._KERNEL_BATCH
-        limits[sl] = torch.where(
-            found.all(dim=1),
-            torch.minimum(cnt, (last_batch + 1) * comp._KERNEL_BATCH),
-            cnt).to(torch.int32)
+        for s in range(split):
+            f, st = found[:, part == s], stop[:, part == s]
+            last_batch = torch.where(f, st, 0).amax(dim=1) \
+                // comp._KERNEL_BATCH
+            limits[sl, s] = torch.where(
+                f.all(dim=1),
+                torch.minimum(cnt, (last_batch + 1) * comp._KERNEL_BATCH),
+                cnt).to(torch.int32)
     return dict(tested=tested, composited=composited, stopping=stopping,
-                limits=limits)
+                limits=limits.contiguous())
 
 
 def k1_culled_pairs(table, gauss_id, starts, counts, grid_x, n_contrib,
                     quad=False):
     """The (pixel, instance) pairs K1's warps test after the cull, given its
-    ``n_contrib`` (``k1_pair_counts``' arguments): dict(tested, live,
-    warp_instances).  A warp walks its tile's instances up to the one where
-    its last pixel stops (all of them if one never does) and tests the
-    instances whose cull bit it has (``comp.warps_that_may_composite_plain``,
-    the kernel's cull in torch): ``warp_instances`` counts those, ``tested``
-    their pairs (each of the warp's pixels inside the tile, done or not), and
-    ``live`` the pairs of pixels not yet done, the pairs K1 tested before
-    the cull that the cull keeps (a pixel tests up to its own stop)."""
+    ``n_contrib`` (``k1_pair_counts``' arguments), and the rest of the work
+    K1's bound counts (``k1_ops``): dict(tested, live, warp_instances,
+    composited, stopping, staged, masks, mask_edges).  A warp walks its
+    tile's instances up to the one where its last pixel stops (all of them
+    if one never does) and tests the instances whose cull bit it has
+    (``comp.warps_that_may_composite_plain``, the kernel's cull in torch):
+    ``warp_instances`` counts those, ``tested`` their pairs (each of the
+    warp's pixels inside the tile, done or not), and ``live`` the pairs of
+    pixels not yet done, the pairs K1 tested before the cull that the cull
+    keeps (a pixel tests up to its own stop).  ``composited`` and
+    ``stopping`` are ``k1_pair_counts``'.  ``staged``: the real instances a
+    tile needs, up to its last pixel's stop; ``masks``: the (instance, warp)
+    pairs whose bit the warp needs (a real instance up to the warp's last
+    one, whose conic and values pass the cull's first tests and whose
+    opacity is positive, so that the warp's box is tested); ``mask_edges``:
+    those whose box does not hold the gaussian's mean (quad_min_box takes
+    its four edges)."""
     P = table.shape[0]
     big = torch.iinfo(torch.int64).max
     dev = table.device
@@ -307,9 +338,14 @@ def k1_culled_pairs(table, gauss_id, starts, counts, grid_x, n_contrib,
     nwarps = int(warp_of.max()) + 1
     onehot = torch.nn.functional.one_hot(warp_of, nwarps).T.to(torch.int64)
     per_warp = onehot.sum(dim=1)                             # [W] pixels
-    tested = live = warp_instances = 0
-    for sl, cnt, stop, _ in _pixel_stops(table, gauss_id, starts, counts,
-                                         grid_x, n_contrib, quad):
+    boxes = torch.tensor(comp.warp_boxes(), dtype=torch.float32,
+                         device=dev)                         # [W,4]
+    n = dict.fromkeys(("tested", "live", "warp_instances", "composited",
+                       "stopping", "staged", "masks", "mask_edges"), 0)
+    for sl, cnt, stop, comp_n in _pixel_stops(table, gauss_id, starts, counts,
+                                              grid_x, n_contrib, quad):
+        n["composited"] += comp_n
+        n["stopping"] += int((stop < big).sum())
         last = torch.where(stop < big, stop, cnt[:, None] - 1)  # [n,PIX]
         # a warp's last instance: its pixels' latest stop
         wlast = torch.where(onehot[None].bool(), last[:, None, :],
@@ -325,13 +361,24 @@ def k1_culled_pairs(table, gauss_id, starts, counts, grid_x, n_contrib,
             may = comp.warps_that_may_composite_plain(rows, ox, oy, valid)
             bits = (may[:, :, None] >> torch.arange(nwarps, device=dev)) & 1
             bits = bits.bool() & valid[:, :, None]           # [n,K,W]
-            w_on = bits & (pos[None, :, None] <= wlast[:, None, :])
-            warp_instances += int(w_on.sum())
-            tested += int((w_on.long() * per_warp).sum())
+            w_need = pos[None, :, None] <= wlast[:, None, :]  # [n,K,W]
+            w_on = bits & w_need
+            n["warp_instances"] += int(w_on.sum())
+            n["tested"] += int((w_on.long() * per_warp).sum())
             p_on = bits[:, :, warp_of] & (pos[None, :, None]
                                           <= last[:, None, :])
-            live += int(p_on.sum())
-    return dict(tested=tested, live=live, warp_instances=warp_instances)
+            n["live"] += int(p_on.sum())
+            n["staged"] += int((valid & w_need.any(dim=2)).sum())
+            mx, my, a, b, c, op = (rows[..., j] for j in range(6))
+            boxed = (valid & (a > 0) & (c > 0) & (a * c - b * b > 0)
+                     & torch.isfinite(rows[..., :5]).all(dim=-1) & (op > 0))
+            need = boxed[:, :, None] & w_need
+            xr, yr = (mx - ox)[:, :, None], (my - oy)[:, :, None]
+            holds = ((xr >= boxes[:, 0]) & (xr <= boxes[:, 1])
+                     & (yr >= boxes[:, 2]) & (yr <= boxes[:, 3]))
+            n["masks"] += int(need.sum())
+            n["mask_edges"] += int((need & ~holds).sum())
+    return n
 
 
 def walk_counts(table, gauss_id, starts, counts, grid_x):
@@ -449,20 +496,23 @@ def load_workload(kind, device="cuda") -> Workload:
 
 def pair_stats(w: Workload) -> dict:
     """The pair counts behind the P1 and P2 bounds on ``w``: K1's walk
-    (``k1_pair_counts`` on K1's own n_contrib), the walk over every
-    instance (``walk_counts``), and K2's walk on ``w.packed``: the pairs up
-    to n_contrib (k2_tested), those it composites, and those ``no_alpha``
-    composites."""
+    (``k1_pair_counts`` on K1's own n_contrib, and under "culled" its
+    ``k1_culled_pairs``), the walk over every instance (``walk_counts``),
+    and K2's walk on ``w.packed``: the pairs up to n_contrib (k2_tested),
+    those it composites, and those ``no_alpha`` composites."""
     C = w.C
     nc2 = w.packed[:, C + 1]
     if w.packed_is_k1:
         k1 = w.pairs or k1_pair_counts(*w.k1_args, nc2)
+        culled = w.culled or k1_culled_pairs(*w.k1_args, nc2)
         k2 = k1
     else:
-        k1 = k1_pair_counts(*w.k1_args,
-                            comp.composite_forward(*w.k1_args)[:, C + 1])
+        nc1 = comp.composite_forward(*w.k1_args)[:, C + 1]
+        k1 = k1_pair_counts(*w.k1_args, nc1)
+        culled = k1_culled_pairs(*w.k1_args, nc1)
         k2 = k1_pair_counts(*w.k1_args, nc2)
     s = dict(k1)
+    s["culled"] = culled
     s.update(walk_counts(*w.k1_args))
     s["k2_tested"] = int(torch.minimum(
         torch.floor(nc2).long(), w.counts.long()[:, None]).sum())
@@ -489,31 +539,43 @@ def k2_bytes(w: Workload) -> int:
             + w.gauss_id.shape[0] * (comp.ATTR_BASE + w.Cg) * 4)
 
 
-def k1_ops(s: dict, C: int, test_ops=K1_TEST_OPS, comp_ops=None) -> int:
-    """K1's operation count on a walk ``s`` (tested, composited,
-    stopping)."""
+def k1_ops(s: dict, C: int, test_ops=K1_TEST_OPS, comp_ops=None,
+           quad=False, unpack=0) -> int:
+    """K1's operation count on a walk after the cull, ``s`` of
+    ``k1_culled_pairs``: ``test_ops`` per live pair (a pixel's pairs up to
+    its stop that its warp's cull bit keeps), K1_STEP_OPS per composited or
+    stopping pair, ``comp_ops`` (1 + 2C) per composited one, and the cull's
+    operations; ``quad`` adds the coefficients and ``unpack`` (the packed
+    forms' stored features) their unpacking per real instance a tile
+    needs."""
     comp_ops = 1 + 2 * C if comp_ops is None else comp_ops
-    return (test_ops * s["tested"]
+    per_instance = (CULL_INSTANCE_OPS + QUAD_COEF_OPS * bool(quad)
+                    + UNPACK_OPS * unpack)
+    return (test_ops * s["live"]
             + K1_STEP_OPS * (s["composited"] + s["stopping"])
-            + comp_ops * s["composited"])
+            + comp_ops * s["composited"]
+            + per_instance * s["staged"] + CULL_WARP_OPS * s["masks"]
+            + CULL_EDGE_OPS * s["mask_edges"])
 
 
 def fwd_ops(variant: str, C: int, s: dict) -> int:
     """P1's operations per variant.  Variants on K1's walk count K1's pairs
-    (quad_power's power takes 10 operations for base's 11; no_matmul's
-    composite 3 for 1 + 2C); the variants without K1's termination test
+    after the cull (``k1_ops`` on ``s["culled"]``; quad_power's power takes
+    10 operations for base's 11, and its coefficients; no_matmul's composite
+    3 for 1 + 2C); the variants without K1's termination test
     every pair of every tile (17 each) and step each passing one (no_cond:
     3 + 1 + 2C, masked; no_scan 3 + 2C; stripped and no_exp 2 + 1 + 2C;
     alpha_only 1); no_exp's tested pair takes 16 (1 + power for the exp2
     and its argument) and its passing pairs are its own."""
     full = 1 + 2 * C
     walk = K1_TEST_OPS * s["all"]
+    k1 = s["culled"]
     return {
-        "base": k1_ops(s, C),
-        "trim_bookkeeping": k1_ops(s, C),
-        "no_minmax": k1_ops(s, C),
-        "no_matmul": k1_ops(s, C, comp_ops=3),
-        "quad_power": k1_ops(s, C, test_ops=K1_TEST_OPS - 1),
+        "base": k1_ops(k1, C),
+        "trim_bookkeeping": k1_ops(k1, C),
+        "no_minmax": k1_ops(k1, C),
+        "no_matmul": k1_ops(k1, C, comp_ops=3),
+        "quad_power": k1_ops(k1, C, test_ops=K1_TEST_OPS - 1, quad=True),
         "no_cond": walk + (K1_STEP_OPS + full) * s["passing"],
         "no_scan": walk + (K1_STEP_OPS + 2 * C) * s["passing"],
         "alpha_only": walk + s["passing"],
@@ -542,7 +604,7 @@ def bwd_ops(variant: str, C: int, Cg: int, s: dict) -> int:
 
 
 def staged_instances(w: Workload, limits=None):
-    """(staged, real): the instances K1's staging reads (tile t stages
+    """(staged, real): the instances a staging reads (tile t stages
     min(limits[t], counts[t])) and those of them that are not the pad
     sentinel."""
     P = w.table.shape[0]
@@ -564,19 +626,21 @@ def staged_bytes(w: Workload, limits=None) -> int:
 
 def load_bounds(w: Workload, limits, resident_pairs) -> dict:
     """(ms, by) of P3's tile variants: load_only and load_only_4tiles by
-    their bytes (staging, the ranges and limits, the sums written);
+    their bytes (the staging's rows read once a tile, up to its CTAs'
+    largest limit; the ranges and limits; the sums written);
     compute_resident by K1's operations on its own walk
-    (``resident_pairs``: ``k1_pair_counts`` of the resident list) against
+    (``resident_pairs``: ``k1_culled_pairs`` of the resident list) against
     the first batch's bytes and K1's output."""
     T = w.starts.shape[0]
     npix = comp.TILE_PIX
     first = torch.clamp(w.counts, max=comp._KERNEL_BATCH).to(torch.int32)
-    staged = staged_bytes(w, limits)
+    staged = staged_bytes(w, limits.amax(dim=1))
+    ranges = (2 + limits.shape[1]) * 4 * T
     per = TILES_PER_CTA
     return {
-        "load_only": bound_ms(staged + 3 * 4 * T + T * npix * 4, 0),
+        "load_only": bound_ms(staged + ranges + T * npix * 4, 0),
         "load_only_4tiles": bound_ms(
-            staged + 3 * 4 * T + (T + per - 1) // per * npix * 4, 0),
+            staged + ranges + (T + per - 1) // per * npix * 4, 0),
         "compute_resident": bound_ms(
             staged_bytes(w, first) + 2 * 4 * T + T * (w.C + 2) * npix * 4,
             k1_ops(resident_pairs, w.C)),

@@ -120,7 +120,7 @@ def test_probe_variants_against_k1_k2_plain_versions():
     w = _dense_workload()
     C = w.C
     assert 4000 < int(w.pairs["stopping"]) < 4 * tcomp.TILE_PIX
-    assert (w.pairs["limits"] < w.counts).any()
+    assert (w.pairs["limits"] < w.counts[:, None]).any()
     k1 = w.packed
     out = {v: probes.probe_forward(v, *w.k1_args)
            for v in probes.FWD_VARIANTS}

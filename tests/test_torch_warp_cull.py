@@ -176,19 +176,25 @@ def test_segment_bounds_plain_matches_searchsorted():
 
 def _culled_pairs_by_hand(table, gid, starts, counts, gx):
     """K1's walk after the cull written out: each pixel's recurrence run
-    instance by instance, each warp walking up to its last pixel's stop."""
+    instance by instance, each warp walking up to its last pixel's stop and
+    testing the boxes of the instances whose bits it needs; and the
+    instances each CTA of K1's split stages."""
     P = table.shape[0]
     C = table.shape[1] - tcomp.ATTR_BASE
     warp_of = tcomp.pixel_warps()
     nwarps = int(warp_of.max()) + 1
-    tested = live = warp_instances = 0
+    cta_of = tcomp.forward_ctas()
+    boxes = tcomp.warp_boxes()
+    n = dict.fromkeys(("tested", "live", "warp_instances", "composited",
+                       "stopping", "staged", "masks", "mask_edges"), 0)
+    limits = []
     for t in range(starts.shape[0]):
         px, py = tcomp.pixel_coords(torch.tensor([t]), gx)
         ox, oy = tcomp.tile_basis(torch.tensor([t]), gx)[:2]
         Tr = torch.ones(tcomp.TILE_PIX)
         done = torch.zeros(tcomp.TILE_PIX, dtype=torch.bool)
         last = torch.full((tcomp.TILE_PIX,), int(counts[t]) - 1)
-        bits = []
+        bits, boxed, mean = [], [], []
         for k in range(int(counts[t])):
             g = int(gid[int(starts[t]) + k])
             real = 0 <= g < P
@@ -198,34 +204,63 @@ def _culled_pairs_by_hand(table, gid, starts, counts, gx):
             ok = real & (power[0, 0] <= 0) & (alpha >= ALPHA_MIN) & ~done
             test_T = Tr * (1.0 - alpha)
             stop = ok & (test_T < 1e-4)
+            n["composited"] += int((ok & ~stop).sum())
             last = torch.where(stop, torch.tensor(k), last)
             done |= stop
             Tr = torch.where(ok & ~stop, test_T, Tr)
             may = int(tcomp.warps_that_may_composite_plain(
                 row[None, None], ox, oy, torch.tensor([[real]]))[0, 0])
             bits.append([(may >> w) & 1 for w in range(nwarps)])
+            mx, my, a, b, c, op = (float(v) for v in row[:6])
+            boxed.append(real and a > 0 and c > 0 and a * c - b * b > 0
+                         and all(math.isfinite(v) for v in (mx, my, a, b, c))
+                         and op > 0)
+            mean.append((mx - float(ox), my - float(oy)))
+        n["stopping"] += int(done.sum())
+        if counts[t] > 0:
+            n["staged"] += sum(0 <= int(gid[int(starts[t]) + k]) < P
+                               for k in range(int(last.max()) + 1))
         for w in range(nwarps):
             pix = (warp_of == w).nonzero().flatten()
             wl_ = int(last[pix].max()) if counts[t] > 0 else -1
+            x0, x1, y0, y1 = boxes[w]
             for k in range(int(counts[t])):
-                if bits[k][w] and k <= wl_:
-                    warp_instances += 1
-                    tested += pix.shape[0]
-                    live += int((last[pix] >= k).sum())
-    return dict(tested=tested, live=live, warp_instances=warp_instances)
+                if k > wl_:
+                    continue
+                if boxed[k]:
+                    n["masks"] += 1
+                    xr, yr = mean[k]
+                    n["mask_edges"] += not (x0 <= xr <= x1 and y0 <= yr <= y1)
+                if bits[k][w]:
+                    n["warp_instances"] += 1
+                    n["tested"] += pix.shape[0]
+                    n["live"] += int((last[pix] >= k).sum())
+        lim = []
+        for s in range(int(cta_of.max()) + 1):
+            m = cta_of == s
+            whole = int(counts[t])
+            lim.append(min(whole, (int(last[m].max()) // 128 + 1) * 128)
+                       if bool(done[m].all()) else whole)
+        limits.append(lim)
+    return n, torch.tensor(limits, dtype=torch.int32)
 
 
 def test_k1_culled_pair_counts_match_a_walk_by_hand():
     """``workload.k1_culled_pairs`` on a seeded 64x32 scene of 150 larger
     gaussians, where pixels terminate part-way, against the walk written
-    out instance by instance; before the cull, ``k1_pair_counts``' tested
-    pairs are the walk's pixels up to their own stop."""
+    out instance by instance (the pairs, the cull's boxes and the instances
+    K1's bound counts); before the cull, ``k1_pair_counts``' tested pairs
+    are the walk's pixels up to their own stop, and its limits the
+    instances each of K1's CTAs stages."""
     table, gid, starts, counts, gx = _scene(21, n=150, W=64, H=32, scale=4.0)
     C = table.shape[1] - tcomp.ATTR_BASE
     out = tcomp.composite_forward_plain(table, gid, starts, counts, gx)
     got = wl.k1_culled_pairs(table, gid, starts, counts, gx, out[:, C + 1])
-    want = _culled_pairs_by_hand(table, gid, starts, counts, gx)
+    want, limits = _culled_pairs_by_hand(table, gid, starts, counts, gx)
     assert got == want
+    assert 0 < want["mask_edges"] < want["masks"]
     before = wl.k1_pair_counts(table, gid, starts, counts, gx, out[:, C + 1])
     assert want["live"] < before["tested"]
-    assert before["stopping"] > 0
+    assert before["stopping"] == want["stopping"] > 0
+    assert before["composited"] == want["composited"]
+    assert torch.equal(before["limits"], limits)
