@@ -19,6 +19,12 @@ Phases (any failure exits non-zero; nothing is caught):
    its extras form K3x at the scene's real exact-cull stage-A sources — rows,
    gaussian ids and 8 extras bit-equal — and exact-cull ``bin_gaussians``
    bit-equal field by field to the same function on the plain versions;
+   both forms bit-equal to the plain version on hand-built sources at the
+   asset's capacity (``tools/workload.py::k3_full_sources``: a run of
+   200,000 empty sources, a 300,000-slot source, offsets reaching 1.2 I);
+   K3 and K3x timed on the device alone (``tools/timing.py::median_ms``)
+   beside the back-to-back mean (``event_ms``), their CTAs per SM and
+   ptxas registers and spills printed after the build;
 4. K1 (forward composite): the kernel against its plain version on that
    binning — every channel within the JAX tests' tolerances; K1 built with
    the other ``--fmad`` setting, compared here and timed beside the main
@@ -109,6 +115,8 @@ import subprocess
 import sys
 import time
 
+from gsplat_tpu_torch.tools.timing import event_ms, median_ms
+
 # Tolerances of the JAX tests between the Pallas path and the oracle
 # (tests/test_pallas_composite.py:35-43).
 ATOL = {"rgb": 3e-5, "alpha": 3e-5, "segment": 3e-5, "T_final": 3e-5,
@@ -148,21 +156,6 @@ def card_line():
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout
     return out.strip().splitlines()[0]
-
-
-def event_ms(torch, fn, iters, warmup=2):
-    """Mean ms per call of ``fn`` over ``iters`` back-to-back calls."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(iters):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / iters
 
 
 def compare_k1(comp, packed, packed_p, C, width=W, height=H):
@@ -283,12 +276,12 @@ def phase_k4(torch, seg, card, gauss_id, P, R):
 
     lib_err = float((library()[:P] - out_k).abs().max())
     check(lib_err <= tol, "K4: kernel disagrees with index_add_")
-    ms = event_ms(torch, lambda: seg.segment_sum_sorted(vals, sids, P, perm),
+    ms = event_ms(lambda: seg.segment_sum_sorted(vals, sids, P, perm),
                   20)
-    plain_ms = event_ms(torch, lambda: seg.segment_sum_sorted_plain(
+    plain_ms = event_ms(lambda: seg.segment_sum_sorted_plain(
         vals, sids, P, perm), 5)
-    library_ms = event_ms(torch, library, 20)
-    sort_ms = event_ms(torch, lambda: torch.sort(gauss_id, stable=True), 20)
+    library_ms = event_ms(library, 20)
+    sort_ms = event_ms(lambda: torch.sort(gauss_id, stable=True), 20)
     # bytes these inputs need: each kept row once with its id and its
     # permutation entry, each output word once; one add per kept value
     nbytes = n_kept * (R * 4 + 4 + 8) + P * R * 4
@@ -333,7 +326,7 @@ def phase_k2(torch, comp, card, k1_args, packed, d_packed, P, C, tested,
     check(max(scaled) <= 1e-3, "K2: kernel disagrees with its plain version")
     again = comp.composite_backward(*args)
     check(torch.equal(again, d_k), "K2: two launches gave different bits")
-    ms = event_ms(torch, lambda: comp.composite_backward(*args), 10)
+    ms = event_ms(lambda: comp.composite_backward(*args), 10)
     nbytes = (table.numel() * 4 + int(counts.sum()) * 4
               + 2 * 4 * starts.shape[0] + 2 * packed.numel() * 4
               + d_k.numel() * 4)
@@ -367,7 +360,7 @@ def phase_k3x(torch, card, bin_lib, pre, gx, gy, cap):
     t0 = time.perf_counter()
     rs = bin_lib.row_sources(pre, gx, gy, 128)
     IR = bin_lib.row_capacity(cap)
-    rw_bits = bin_lib._meta_layout(gx, gx * gy, 128)[1]
+    rw_bits = bin_lib.meta_layout(gx, gx * gy, 128)[1]
     S = rs.offsets.shape[0]
     args = (rs.offsets, rs.meta, rs.gid, IR, rw_bits, gx, gy)
     out_k = bin_lib.expand(*args, extras=rs.extras)
@@ -407,25 +400,70 @@ def phase_k3x(torch, card, bin_lib, pre, gx, gy, cap):
           f"field; num_rendered / num_padded {int(culled.num_rendered)} / "
           f"{int(culled.num_padded)} with the cull, "
           f"{int(full.num_rendered)} / {int(full.num_padded)} without")
-    ms = event_ms(torch, lambda: bin_lib.expand(*args, extras=rs.extras), 20)
-    plain_ms = event_ms(torch, lambda: bin_lib.expand_plain(
+    ms = median_ms(lambda: bin_lib.expand(*args, extras=rs.extras))
+    back_ms = event_ms(lambda: bin_lib.expand(*args, extras=rs.extras), 20)
+    plain_ms = event_ms(lambda: bin_lib.expand_plain(
         *args, extras=rs.extras), 10)
-    cull_ms = event_ms(torch, lambda: bin_lib.bin_gaussians(
+    cull_ms = event_ms(lambda: bin_lib.bin_gaussians(
         pre, gx, gy, cap, cull="exact"), 10)
-    none_ms = event_ms(torch, lambda: bin_lib.bin_gaussians(pre, gx, gy, cap),
+    none_ms = event_ms(lambda: bin_lib.bin_gaussians(pre, gx, gy, cap),
                        10)
-    # each source read once (offsets, meta, gid, 8 extras), each slot
-    # written once (ty, gid, 8 extras); a binary search and the decode per
-    # slot
-    nbytes = (3 + 8) * 4 * S + (2 + 8) * 4 * IR
-    nops = IR * (4 * math.ceil(math.log2(S + 1)) + 12)
-    bound, by = wl.bound_ms(nbytes, nops)
-    print(f"K3x [{card}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; bound "
+    bound, by, nbytes, nops = wl.expand_bound(S, IR, rs.extras.shape[0])
+    print(f"K3x [{card}]: kernel {ms:.5f} ms on the device alone "
+          f"(timing.median_ms; {back_ms:.5f} ms a call back to back, host "
+          f"included), plain {plain_ms:.4f} ms; bound "
           f"{bound:.5f} ms ({nbytes} bytes, {nops} ops); bin_gaussians "
           f"exact {cull_ms:.4f} ms, none {none_ms:.4f} ms; phase "
           f"{time.perf_counter() - t0:.1f} s")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": by, "library_ms": None}
+
+
+def check_k3_partition(torch, lib, bin_lib, args, what):
+    """K3's partition as the kernel finds it (``gsplat_expand_partition``, K3
+    launched through its C entry, so not counted), CTA by CTA equal to
+    ``binning.expand_partition_plain``; returns the plain partition."""
+    offsets, meta, gid, I, rw_bits, grid_x, num_tiles = args
+    S = offsets.shape[0]
+    items = lib.gsplat_expand_items()
+    n = (S + I + items - 1) // items
+    outs = [torch.empty(I, dtype=torch.int32, device=offsets.device)
+            for _ in range(2)]
+    part = torch.empty((n, 3), dtype=torch.int32, device=offsets.device)
+    err = lib.gsplat_expand_partition(
+        offsets.data_ptr(), meta.data_ptr(), gid.data_ptr(), S, I, rw_bits,
+        grid_x, num_tiles, outs[0].data_ptr(), outs[1].data_ptr(),
+        part.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    check(err == 0, f"K3 partition ({what}): CUDA error {err}")
+    plain = bin_lib.expand_partition_plain(offsets, I, items)
+    for j, f in enumerate(("slot_start", "source_start", "first_owner")):
+        bad = int((part[:, j] != getattr(plain, f)).sum())
+        check(bad == 0, f"K3 partition ({what}): {f} differs from the plain "
+              f"version in {bad} of {n} CTAs")
+    return plain
+
+
+def phase_k3_handmade(torch, card, bin_lib, wl, dev, lib):
+    """K3 and K3x bit-equal to ``expand_plain`` on the hand-built sources at
+    full scale (``workload.k3_full_sources``): a run of 200,000 empty
+    sources, a source of 300,000 slots, offsets reaching 1.2 I; K3's
+    partition equal to its plain version there."""
+    hand = wl.k3_full_sources(dev)
+    args = hand.args(wl.K3_FULL_I)
+    part = check_k3_partition(torch, lib, bin_lib, args, "hand-built")
+    times = {}
+    for name, extras in (("K3", ()), ("K3x", hand.extras)):
+        got = bin_lib.expand(*args, extras=extras)
+        want = bin_lib.expand_plain(*args, extras=extras)
+        check(all(bits_equal(torch, a, b) for a, b in zip(got, want)),
+              f"{name}: hand-built sources differ from the plain version")
+        times[name] = median_ms(lambda: bin_lib.expand(*args, extras=extras))
+    print(f"K3 and K3x on hand-built sources: bit-equal to the plain version "
+          f"on {wl.K3_FULL_I} slots ({hand.offsets.shape[0]} sources, "
+          f"offsets up to {int(hand.offsets.max())}), K3's partition equal "
+          f"to its plain version in all {part.slot_start.shape[0]} CTAs; "
+          f"device alone [{card}] K3 {times['K3']:.5f} ms, K3x "
+          f"{times['K3x']:.5f} ms")
 
 
 def phase_cull_render(torch, card, model, cam, cap):
@@ -1189,9 +1227,9 @@ def phase_probes(torch, card, w):
             "base", *w.k1_args))[0],
         "P2": single_ms(torch, lambda: probes.probe_backward_plain(
             "base", *w.k2_args))[0],
-        "P3": event_ms(torch, lambda: probes.probe_gather_plain(
+        "P3": event_ms(lambda: probes.probe_gather_plain(
             "row_gather", t13, ids), 5),
-        "P4": event_ms(torch, lambda: probes.probe_dtype_plain(
+        "P4": event_ms(lambda: probes.probe_dtype_plain(
             x32, bench_vpu_dtype.N_ITERS), 5),
     }
     print(f"probes (e) [{card}]: plain versions {json.dumps(plain)} ms; "
@@ -1263,7 +1301,7 @@ def phase_form_kernels(torch, card, w):
             # the features do not reach T_final or n_contrib: the f32 form's
             check(bits_equal(torch, out_k[:, C:], w.packed[:, C:]),
                   f"K1 {name}: T_final or n_contrib differs from the f32 form")
-        ms1 = event_ms(torch, lambda: comp.composite_forward(*k1), 20)
+        ms1 = event_ms(lambda: comp.composite_forward(*k1), 20)
         bits = form.bits | (4 if form.with_ones else 0)
         cg = Cg if form.feat_packed else C
         occ1 = (f"{comp.forward_occupancy(C, cg, form)} CTAs per SM, "
@@ -1298,7 +1336,7 @@ def phase_form_kernels(torch, card, w):
               f"column {worst:.3g} of its largest)")
         check(torch.equal(comp.composite_backward(*k2), d_k),
               f"K2 {name}: two launches gave different bits")
-        ms2 = event_ms(torch, lambda: comp.composite_backward(*k2), 10)
+        ms2 = event_ms(lambda: comp.composite_backward(*k2), 10)
         nc = out_k[:, C + 1]
         limit = torch.minimum(nc.amax(dim=1).long(), counts.long())
         staged, n_real = wl.staged_instances(w, limit)
@@ -1691,7 +1729,7 @@ def main():
     t0 = time.perf_counter()
     report = _kernels.build()
     PTXAS["report"] = report
-    _kernels.lib()
+    lib = _kernels.lib()
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc sm_90a, "
           f"{len(_kernels.SOURCES)} sources in parallel)")
     for line in report.splitlines():
@@ -1703,6 +1741,12 @@ def main():
           "C = 3, 5, 7 (f32, quad, packed, packed quad): " + "; ".join(
               f"C={C} form {b}: {k1_ptxas(C, b)}" for C in (3, 5, 7)
               for b in ((0, 1, 2, 3) if C == 3 else (0, 1, 6, 7))))
+    k3_regs = _kernels.ptxas_entries(
+        report, re.compile(r"(expand_extras_kernel|expand_kernel)(?!ILb1E)"))
+    print(f"K3 CTAs per SM: {lib.gsplat_expand_occupancy(0)}, K3x: "
+          f"{lib.gsplat_expand_occupancy(8)}; ptxas: " + "; ".join(
+              f"{k[0]}: {r} registers, {sp} bytes spilled"
+              for k, (r, sp) in sorted(k3_regs.items())))
     tile_children = {shape: start_tile_child(*shape) for shape in TILE_SHAPES}
     wmap = {f"{x}x{y}": comp.warp_map_errors(x, y) for x, y in WARP_MAP_SHAPES}
     check(all(v == {"outside": 0, "misowned": 0} for v in wmap.values()),
@@ -1742,12 +1786,15 @@ def main():
               f"K3: binning {f} differs from the plain version")
     check(k3_bad == 0, f"K3: {k3_bad} slots differ from the plain version")
     check(not bool(bins.overflow), "K3: capacity overflow at 1080p")
+    k3_part = check_k3_partition(torch, lib, bin_lib, k3_args, "asset")
     print(f"K3 expand: bit-equal to its plain version on {cap} slots "
           f"({S} sources, {int(bins.num_rendered)} instances, "
-          f"{int(bins.num_padded)} padded)")
+          f"{int(bins.num_padded)} padded); its partition equal to the plain "
+          f"version's in all {k3_part.slot_start.shape[0]} CTAs")
 
     # ---- 3a. K3x (the extras form) and exact-cull binning -----------------
     k3x = phase_k3x(torch, card, bin_lib, pre, gx, gy, cap)
+    phase_k3_handmade(torch, card, bin_lib, wl, dev, lib)
 
     # ---- 4. K1 against its plain version ----------------------------------
     C = w.C
@@ -1913,21 +1960,25 @@ def main():
     }
     stage_ms = {}
     for name, fn in stages.items():
-        stage_ms[name] = event_ms(torch, fn, 20)
+        stage_ms[name] = event_ms(fn, 20)
         print(f"stage [{card}] {name}: {stage_ms[name]:.4f} ms")
     # main and other --fmad build of K1, alternated in this one run
     main_fmad = "false" if alt_fmad == "true" else "true"
     fmad_ms = {main_fmad: [stage_ms["K1 kernel alone"]], alt_fmad: []}
     for _ in range(2):
-        fmad_ms[alt_fmad].append(event_ms(torch, k1_alt, 20))
+        fmad_ms[alt_fmad].append(event_ms(k1_alt, 20))
         fmad_ms[main_fmad].append(event_ms(
-            torch, lambda: comp.composite_forward(*k1_args), 20))
+            lambda: comp.composite_forward(*k1_args), 20))
     print(f"K1 [{card}] --fmad={main_fmad} (main build): "
           f"{', '.join(f'{t:.4f}' for t in fmad_ms[main_fmad])} ms; "
           f"--fmad={alt_fmad}: "
           f"{', '.join(f'{t:.4f}' for t in fmad_ms[alt_fmad])} ms")
-    k3_plain_ms = event_ms(torch, lambda: bin_lib.expand_plain(*k3_args), 10)
-    k1_plain_ms = event_ms(torch, lambda: comp.composite_forward_plain(
+    k3_ms = median_ms(lambda: bin_lib.expand(*k3_args))
+    print(f"K3 [{card}]: {k3_ms:.5f} ms on the device alone "
+          f"(timing.median_ms); {stage_ms['K3 kernel alone']:.5f} ms a call "
+          "back to back, host included (event_ms)")
+    k3_plain_ms = event_ms(lambda: bin_lib.expand_plain(*k3_args), 10)
+    k1_plain_ms = event_ms(lambda: comp.composite_forward_plain(
         *k1_args), 2, warmup=1)
     print(f"plain [{card}] K3 expand_plain: {k3_plain_ms:.4f} ms; "
           f"K1 composite_forward_plain: {k1_plain_ms:.2f} ms")
@@ -1947,14 +1998,14 @@ def main():
     phase_tiles(card, tile_children)
 
     # bounds: each input read once, each output written once
-    k3_bytes = 3 * 4 * S + 2 * 4 * cap
-    k3_ops = cap * (4 * math.ceil(math.log2(S + 1)) + 12)
-    k3_bound, k3_by = wl.bound_ms(k3_bytes, k3_ops)
+    k3_bound, k3_by, k3_bytes, k3_ops = wl.expand_bound(S, cap)
     k1_bytes = (table.numel() * 4 + int(counts.sum()) * 4 + 2 * 4 * num_tiles
                 + packed_k.numel() * 4)
     k1_ops = wl.k1_ops(w.culled, C)
     k1_bound, k1_by = wl.bound_ms(k1_bytes, k1_ops)
-    print(f"K3 bound: {k3_bytes} bytes, {k3_ops} ops; K1 bound: {k1_bytes} "
+    print(f"K3 bound: {k3_bytes} bytes, {k3_ops} ops (not counted, a cost "
+          f"of its design: the {k3_part.probes} offsets its partition "
+          f"probes, {4 * k3_part.probes} bytes); K1 bound: {k1_bytes} "
           f"bytes, {k1_ops} ops ({wl.K1_TEST_OPS} per live pair after the "
           f"per-warp cull, {wl.K1_STEP_OPS} more per composited or stopping "
           f"pair, {1 + 2 * C} more per composited pair; the cull's "
@@ -1966,7 +2017,7 @@ def main():
          "source": "gsplat_tpu_torch/csrc/expand.cu",
          "replaces": "gsplat_tpu/ops/binning.py:84",
          "launches": launches["expand"], "max_abs_err": float(k3_err),
-         "ms": stage_ms["K3 kernel alone"], "plain_ms": k3_plain_ms,
+         "ms": k3_ms, "plain_ms": k3_plain_ms,
          "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": None},
         {"name": "K1 composite_forward", "route": "cuda",
          "source": "gsplat_tpu_torch/csrc/composite_fwd.cuh",

@@ -67,6 +67,14 @@ SIGNATURES = {
     # n_extra, tile_out, gid_out, extras_out, stream
     "gsplat_expand_extras": (_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
                              _VP, _VP, _VP, _VP),
+    # gsplat_expand's arguments with part_out before the stream: each CTA's
+    # first slot, first source and first slot's owner
+    "gsplat_expand_partition": (_VP, _VP, _VP, _I, _I, _I, _I, _I, _VP, _VP,
+                                _VP, _VP),
+    # the merge items per CTA of gsplat_expand
+    "gsplat_expand_items": (),
+    # n_extra (0: K3, else K3x): CTAs per SM
+    "gsplat_expand_occupancy": (_I,),
     # table, P, C, gauss_id, starts, counts, num_tiles, grid_x, tile_x,
     # tile_y, out, stream
     "gsplat_composite_forward": (_VP, _I, _I, _VP, _VP, _VP, _I, _I, _I, _I,

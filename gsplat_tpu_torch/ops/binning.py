@@ -97,7 +97,7 @@ def depth_order(pre: PreprocessOut):
     return torch.argsort(dkey, stable=True).to(torch.int32)        # [P]
 
 
-def _meta_layout(grid_x: int, num_tiles: int, align: int):
+def meta_layout(grid_x: int, num_tiles: int, align: int):
     """(rw_cap, rw_bits, pack_meta) of the packed (base | rw | colstep)
     meta word."""
     rw_cap = max(grid_x, align, 2)
@@ -154,7 +154,7 @@ def expansion_sources(pre: PreprocessOut, grid_x: int, grid_y: int,
     # covers real sources (base = ty0*grid_x+tx0, rw = rect width,
     # colstep = 1), per-tile pads (base = tile, rw = align, colstep = 0) and
     # the tail sentinel (base = num_tiles)
-    rw_cap, rw_bits, pack_meta = _meta_layout(grid_x, num_tiles, align)
+    rw_cap, rw_bits, pack_meta = meta_layout(grid_x, num_tiles, align)
     base_real = src_tbl[:, 2] * grid_x + src_tbl[:, 1]
     meta_real = pack_meta(base_real, src_tbl[:, 3], torch.ones_like(base_real))
     return ExpansionSources(
@@ -193,6 +193,81 @@ def expand_plain(offsets, meta, gid, I: int, rw_bits: int, grid_x: int,
     if len(extras) == 0:
         return out
     return out + (extras[:, src],)
+
+
+SEARCH_LANES = 16     # lanes of K3's partition search per end of a CTA
+
+
+class ExpandPartition(NamedTuple):
+    """K3's partition of the merge of the sources and the slots, one row
+    per CTA (``expand_partition_plain``)."""
+    slot_start: torch.Tensor    # [n] int32 first slot of each CTA
+    source_start: torch.Tensor  # [n] int32 first source each CTA consumes
+    first_owner: torch.Tensor   # [n] int32 owner of the CTA's first slot
+    probes: int                 # offsets the search loads, over all CTAs
+
+
+def _merge_split(offsets, I: int, diag):
+    """(a, loads) for each diagonal ``diag`` [n] of the merge: ``a`` the
+    sources among its first ``diag`` items, found as K3's partition finds
+    it (csrc/expand.cu ``merge_split``), and the offsets each search
+    loads.  Source s comes before slot j when offsets[s] <= j, so its place
+    in the merge is s + min(offsets[s], I): it lies before the diagonal iff
+    that is < diag.  The search narrows [max(0, diag - I), min(diag, S)]
+    by SEARCH_LANES probes at a time."""
+    S = offsets.shape[0]
+    d = diag.long()
+    lo = torch.clamp(d - I, min=0)
+    hi = torch.clamp(d, max=S)
+    off = torch.clamp(offsets.long(), max=I)
+    lanes = torch.arange(SEARCH_LANES, device=d.device)
+    loads = torch.zeros_like(d)
+    while True:
+        active = hi > lo
+        if not bool(active.any()):
+            return lo, loads
+        step = torch.where(active, (hi - lo + SEARCH_LANES - 1)
+                           // SEARCH_LANES, 0)
+        s = lo[:, None] + lanes[None, :] * step[:, None]
+        valid = active[:, None] & (s < hi[:, None])
+        loads += valid.sum(dim=1)
+        before = valid & (s + off[s.clamp(max=S - 1)] < d[:, None])
+        cnt = before.sum(dim=1)
+        lo, hi = (torch.where(active & (cnt > 0), lo + (cnt - 1) * step + 1,
+                              lo),
+                  torch.where(active, torch.where(
+                      cnt > 0, torch.minimum(hi, lo + cnt * step), lo), hi))
+
+
+def expand_partition_plain(offsets, I: int, items: int) -> ExpandPartition:
+    """Plain version of K3's partition: the merge of the S sources and the
+    I slots (sources first on ties) cut into CTAs of ``items`` merged items
+    each.  Per CTA: its first slot, its first source, and the owner of its
+    first slot by the kernel's rule: the last source consumed before its
+    diagonal (0 if there is none), unless the tie group at that slot runs
+    on into the CTA, whose last source then owns it."""
+    S = offsets.shape[0]
+    dev = offsets.device
+    n = (S + I + items - 1) // items
+    diag = torch.clamp(torch.arange(n + 1, device=dev) * items, max=S + I)
+    a, loads = _merge_split(offsets, I, diag)
+    b = diag - a
+    a0, a1, b0, b1 = a[:-1], a[1:], b[:-1], b[1:]
+    first = torch.clamp(a0 - 1, min=0)
+    # the scatter of the kernel's merge: the last source of each tie group
+    # marks its offset; a CTA's first slot takes the mark of a source it
+    # consumed itself
+    src = torch.arange(S, device=dev)
+    off = offsets.long()
+    last = torch.ones(S, dtype=torch.bool, device=dev)
+    last[:-1] = off[1:] != off[:-1]
+    cta = torch.searchsorted(a1, src, right=True)   # the CTA consuming src
+    hit = last & (off == b0[cta]) & (b0[cta] < b1[cta])
+    first = first.scatter_reduce(0, cta[hit], src[hit], "amax")
+    return ExpandPartition(slot_start=b0.to(torch.int32),
+                           source_start=a0.to(torch.int32),
+                           first_owner=first.to(torch.int32),
+                           probes=int(loads[:-1].sum() + loads[1:].sum()))
 
 
 def expand(offsets, meta, gid, I: int, rw_bits: int, grid_x: int,
@@ -277,7 +352,7 @@ def row_sources(pre: PreprocessOut, grid_x: int, grid_y: int,
     dev = pre.depths.device
     i32 = dict(dtype=torch.int32, device=dev)
     f32 = torch.float32
-    rw_cap, _, pack_meta = _meta_layout(grid_x, grid_x * grid_y, align)
+    rw_cap, _, pack_meta = meta_layout(grid_x, grid_x * grid_y, align)
     order = depth_order(pre).long()
     rect_w = torch.clamp(pre.rect_max[:, 0] - pre.rect_min[:, 0], min=1)
     rect_h = torch.clamp(pre.rect_max[:, 1] - pre.rect_min[:, 1], min=1)
@@ -331,7 +406,7 @@ def _bin_gaussians_culled(pre: PreprocessOut, grid_x: int, grid_y: int,
     if not (P < (1 << 24) and I < (1 << 24)):
         raise ValueError("cull='exact' needs fewer than 2^24 gaussians and "
                          "instance slots (the JAX kernel's f32 carrier)")
-    rw_cap, rw_bits, pack_meta = _meta_layout(grid_x, num_tiles, align)
+    rw_cap, rw_bits, pack_meta = meta_layout(grid_x, num_tiles, align)
     rs = row_sources(pre, grid_x, grid_y, align)
     ty_r, gid_r, ext = expand(rs.offsets, rs.meta, rs.gid, IR, rw_bits,
                               grid_x, grid_y, extras=rs.extras)

@@ -1,7 +1,8 @@
-"""Time K1, K2 or K4 built from other trees of ``gsplat_tpu_torch/csrc``
-against this one's on the card, alternated, at the 1080p asset.
+"""Time K1, K2, K3, K3x or K4 built from other trees of
+``gsplat_tpu_torch/csrc`` against this one's on the card, alternated, at
+the 1080p asset.
 
-    python -m gsplat_tpu_torch.tools.k2_trees [--kernel k1|k2|k4] \
+    python -m gsplat_tpu_torch.tools.k2_trees [--kernel k1|k2|k3|k3x|k4] \
         --tree old=<csrc dir> [--tree <name>=<csrc dir> ...] \
         [--forms f32,quad,packed,packed_quad]
 
@@ -23,6 +24,16 @@ at the asset's width; checks each tree's output:
   list sorted by gaussian id, [I, 12] rows from a generator seeded 4)
   bit-equal to this tree's, and this tree's within tolerance of
   ``index_add_``;
+- K3 and K3x (``expand.cu``), in place of the forms two inputs: "asset",
+  the asset's cull="none" sources at the renderer's capacity (K3) or its
+  exact-cull stage-A sources (K3x), and "handmade",
+  ``workload.k3_full_sources``; this tree's outputs bit-equal to
+  ``binning.expand_plain``'s, every other tree's to this tree's; it prints
+  after the medians each input's bound (``workload.expand_bound``) with
+  the offsets K3's partition probes beside it, the CTAs per SM of the
+  trees that report them, each tree's back-to-back mean
+  (``timing.event_ms``, host included) and two ``fill_`` calls of [I]
+  int32, a floor for K3's writes;
 
 then times each form with the trees in order, reversed, in order and
 reversed (``timing.median_ms`` of the C entry's launch and what the wrapper
@@ -36,15 +47,18 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import math
 import os
 import re
 import subprocess
 import tempfile
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
 from gsplat_tpu_torch import _kernels
+from gsplat_tpu_torch.ops import binning as bin_lib
 from gsplat_tpu_torch.ops import composite_cuda as comp
 from gsplat_tpu_torch.tools import timing
 from gsplat_tpu_torch.tools import workload as wl
@@ -61,6 +75,11 @@ KERNELS = {
            re.compile(r"composite_backward_kernelILi7ELi0ELi(\d)E")),
     "k4": (("segsum.cu",), ("gsplat_segment_sum",),
            re.compile(r"segsum_kernel|segment_sum_kernelILi12E")),
+    # K3 and K3x, keyed by the kernel's name
+    "k3": (("expand.cu",), ("gsplat_expand",),
+           re.compile(r"(expand_extras_kernel|expand_kernel)(?!ILb1E)")),
+    "k3x": (("expand.cu",), ("gsplat_expand_extras",),
+            re.compile(r"(expand_extras_kernel|expand_kernel)(?!ILb1E)")),
 }
 # K4's entry before it took a scratch for its segment bounds
 _K4_OLD = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 3 + (ctypes.c_void_p,) * 2
@@ -82,7 +101,7 @@ def build(trees: dict, out_dir: str, kernel: str = "k2") -> dict:
         report, _ = p.communicate()
         if p.returncode != 0:
             raise RuntimeError(f"nvcc failed for tree {name}\n{report}")
-        regs = {int(k[0]) if pattern.groups else 0:
+        regs = {k[0] if pattern.groups else "0":
                 f"{r} registers, {sp} bytes spill stores"
                 for k, (r, sp) in _kernels.ptxas_entries(report,
                                                          pattern).items()}
@@ -96,8 +115,17 @@ def build(trees: dict, out_dir: str, kernel: str = "k2") -> dict:
     return libs
 
 
-def _k2_cases(w, forms, dev):
-    """{form: (launcher of a library, check of its output)} for K2."""
+class Cases(NamedTuple):
+    """What ``main`` checks and times for one kernel."""
+    workload: str       # the workload's name
+    cases: dict         # {form: (launcher of a library, check of its output)}
+    # report lines after the times, from {tree: (library, ptxas)}, or None
+    notes: Optional[Callable] = None
+
+
+def _k2_cases(workload, forms, dev):
+    """K2's forms."""
+    w = wl.load_workload(workload, dev)
     C, Cg = w.C, w.Cg
     cases = {}
     for f in forms:
@@ -141,15 +169,25 @@ def _k2_cases(w, forms, dev):
                     f"{err:.3g}, worst column {worst:.2e} of its largest); "
                     f"bit-equal to this tree's: {same}")
         cases[f] = (launcher, check)
-    return cases
+    return Cases(w.name, cases)
 
 
-def _k1_cases(w, forms, dev):
-    """{form: (launcher, check)} for K1: bit-equal to this tree's output,
-    which is held to the plain version by chip_smoke.py's tolerances; and
-    "heaviest", the f32 form on the tile with the most instances alone (the
-    other tiles' counts 0): the longest walk, which bounds the kernel."""
+def _k1_cases(workload, forms, dev):
+    """K1's forms: bit-equal to this tree's output, which is held to the
+    plain version by chip_smoke.py's tolerances; and "heaviest", the f32 form
+    on the tile with the most instances alone (the other tiles' counts 0):
+    the longest walk, which bounds the kernel.  Prints the pairs K1 tests
+    before and after its per-warp cull."""
+    w = wl.load_workload(workload, dev)
     C, Cg = w.C, w.Cg
+    before = w.pairs or wl.k1_pair_counts(*w.k1_args, w.packed[:, C + 1])
+    after = wl.k1_culled_pairs(*w.k1_args, w.packed[:, C + 1])
+    print(f"k1_trees: pairs K1 tests on the {w.name} workload: "
+          f"{before['tested']} before the per-warp cull (each pixel up to its "
+          f"own stop); after it {after['tested']} in "
+          f"{after['warp_instances']} warp-instances (a warp's pixels up to "
+          f"its last pixel's stop), {after['live']} of them of pixels not "
+          "yet done")
     heavy = torch.zeros_like(w.counts)
     top = int(torch.argmax(w.counts))
     heavy[top] = w.counts[top]
@@ -198,12 +236,12 @@ def _k1_cases(w, forms, dev):
                                    f"this tree's (rows {rows.tolist()})")
             return f"bit-equal to this tree's in all {C + 2} rows"
         cases[f] = (launcher, check)
-    return cases
+    return Cases(w.name, cases)
 
 
-def _k4_case(w, dev):
-    """{"f32": (launcher, check)} for K4 at chip_smoke.py phase 5's
-    inputs."""
+def _k4_cases(workload, forms, dev):
+    """K4 ("f32") at chip_smoke.py phase 5's inputs; ``forms`` unused."""
+    w = wl.load_workload(workload, dev)
     P = w.table.shape[0]
     R = comp.ATTR_BASE + w.C - 1
     gen = torch.Generator(device=dev)
@@ -249,7 +287,119 @@ def _k4_case(w, dev):
             raise RuntimeError(f"K4 of tree {name}: not bit-equal to this "
                                "tree's")
         return "bit-equal to this tree's"
-    return {"f32": (launcher, check)}
+    return Cases(w.name, {"f32": (launcher, check)})
+
+
+def _k3_cases(workload, forms, dev, n_extra):
+    """K3 (``n_extra`` 0) or K3x (8), in place of the forms two inputs:
+    "asset", the asset's cull="none" sources at the renderer's capacity
+    (K3) or its exact-cull stage-A sources at their row capacity (K3x);
+    "handmade", ``workload.k3_full_sources``.  This tree's outputs bit-equal
+    to ``expand_plain``'s, every other tree's to this tree's.  Its notes:
+    each input's bound (``workload.expand_bound``; K3's partition probes
+    beside it, a cost of the design), the CTAs per SM of the trees that
+    report them, each tree's back-to-back mean (``timing.event_ms``, host
+    included) and two ``fill_`` calls of [I] int32, a floor for K3's
+    writes."""
+    if workload != "asset":
+        raise ValueError("K3 and K3x run on the asset's sources")
+    # the asset's binning alone, not K1's pairs
+    w = wl.asset_workload(dev, pair_counts=False)
+    sc = w.scene
+    gx, gy, cap, pre = w.grid_x, sc["grid_y"], sc["cap"], sc["pre"]
+    if n_extra == 0:
+        src = bin_lib.expansion_sources(pre, gx, gy, 128)
+        asset = (src.offsets, src.meta, src.gid, cap, src.rw_bits, gx,
+                 gx * gy)
+        asset_extras = ()
+    else:
+        rs = bin_lib.row_sources(pre, gx, gy, 128)
+        asset = (rs.offsets, rs.meta, rs.gid, bin_lib.row_capacity(cap),
+                 bin_lib.meta_layout(gx, gx * gy, 128)[1], gx, gy)
+        asset_extras = rs.extras
+    hand = wl.k3_full_sources(dev)
+    inputs = {"asset": (asset, asset_extras),
+              "handmade": (hand.args(wl.K3_FULL_I),
+                           hand.extras if n_extra else ())}
+    cases = {}
+    for case, (args, extras) in inputs.items():
+        want = bin_lib.expand_plain(*args, extras=extras)
+
+        def launcher(lib, args=args, extras=extras, case=case):
+            offsets, meta, gid, I, rw_bits, grid_x, num_tiles = args
+            head = (offsets.data_ptr(), meta.data_ptr(), gid.data_ptr())
+            tail = (offsets.shape[0], I, rw_bits, grid_x, num_tiles)
+
+            def run():
+                out = (torch.empty(I, dtype=torch.int32, device=dev),
+                       torch.empty(I, dtype=torch.int32, device=dev))
+                if n_extra == 0:
+                    err = lib.gsplat_expand(
+                        *head, *tail, *(o.data_ptr() for o in out),
+                        _kernels.stream_of(offsets))
+                else:
+                    out += (torch.empty((n_extra, I), dtype=torch.float32,
+                                        device=dev),)
+                    err = lib.gsplat_expand_extras(
+                        *head, extras.data_ptr(), *tail, n_extra,
+                        *(o.data_ptr() for o in out),
+                        _kernels.stream_of(offsets))
+                if err != 0:
+                    raise RuntimeError(f"K3 {case}: CUDA error {err}")
+                return out
+            return run
+
+        def check(name, got, ref, want=want, case=case, args=args):
+            other, what = ((want, "the plain version") if name == "new"
+                           else (ref, "this tree's"))
+            if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                       for a, b in zip(got, other)):
+                raise RuntimeError(f"K3 {case} of tree {name}: not "
+                                   f"bit-equal to {what}")
+            return (f"bit-equal to {what} in all {len(got)} outputs (S "
+                    f"{args[0].shape[0]}, I {args[3]}, offsets up to "
+                    f"{int(args[0].max())})")
+        cases[case] = (launcher, check)
+
+    def notes(libs):
+        lines = []
+        for case, (args, _) in inputs.items():
+            offsets, I = args[0], args[3]
+            ms, by, nbytes, nops = wl.expand_bound(offsets.shape[0], I,
+                                                   n_extra)
+            line = (f"{case} bound {ms:.5f} ms ({by}; {nbytes} bytes, {nops} "
+                    "operations)")
+            if n_extra == 0:
+                items = libs["new"][0].gsplat_expand_items()
+                probes = bin_lib.expand_partition_plain(offsets, I,
+                                                        items).probes
+                line += (f"; not in it, a cost of the design: {probes} "
+                         f"offsets the partition probes at {items} items "
+                         "per CTA")
+            lines.append(line)
+        for name, (lib, _) in libs.items():
+            occ = getattr(lib, "gsplat_expand_occupancy", None)
+            if occ:
+                lines.append(f"{name} CTAs per SM: K3 {occ(0)}, K3x {occ(8)}")
+        # the back-to-back mean, which PERF.md carried before (host
+        # included); and a floor for the writes: torch's fill_ of K3's two
+        # outputs
+        for name, (lib, _) in libs.items():
+            lines.append(f"{name} event_ms " + " ".join(
+                f"{case} {timing.event_ms(launcher(lib), 20):.5f}"
+                for case, (launcher, _) in cases.items()))
+        lines.append("two fill_ of [I] int32 " + " ".join(
+            f"{case} " + format(timing.median_ms(lambda I=args[3]: [
+                torch.empty(I, dtype=torch.int32, device=dev).fill_(0)
+                for _ in range(2)]), ".5f")
+            for case, (args, _) in inputs.items()))
+        return lines
+    return Cases(w.name, cases, notes)
+
+
+CASES = {"k1": _k1_cases, "k2": _k2_cases, "k4": _k4_cases,
+         "k3": functools.partial(_k3_cases, n_extra=0),
+         "k3x": functools.partial(_k3_cases, n_extra=8)}
 
 
 def main(trees=None, forms=FORMS, device="cuda", workload="asset",
@@ -261,29 +411,14 @@ def main(trees=None, forms=FORMS, device="cuda", workload="asset",
     dev = timing.cuda_device(device)
     card = timing.card_line()
     trees = {"new": _kernels.CSRC_DIR, **(trees or {})}
-    w = wl.load_workload(workload, dev)
-    if kernel == "k4":
-        forms = ("f32",)
-        cases = _k4_case(w, dev)
-    elif kernel == "k1":
-        cases = _k1_cases(w, forms, dev)
-        forms = (*forms, "heaviest")
-        before = w.pairs or wl.k1_pair_counts(*w.k1_args, w.packed[:, w.C + 1])
-        after = wl.k1_culled_pairs(*w.k1_args, w.packed[:, w.C + 1])
-        print(f"k1_trees: pairs K1 tests on the {w.name} workload: "
-              f"{before['tested']} before the per-warp cull (each pixel up "
-              f"to its own stop); after it {after['tested']} in "
-              f"{after['warp_instances']} warp-instances (a warp's pixels up "
-              f"to its last pixel's stop), {after['live']} of them of pixels "
-              "not yet done")
-    else:
-        cases = _k2_cases(w, forms, dev)
+    spec = CASES[kernel](workload, forms, dev)
+    forms = tuple(spec.cases)
 
     with tempfile.TemporaryDirectory() as tmp:
         libs = build(trees, tmp, kernel)
         names = list(libs)
         for f in forms:
-            launcher, check = cases[f]
+            launcher, check = spec.cases[f]
             ref = None
             for name in names:      # "new" first: the others meet its output
                 got = launcher(libs[name][0])()
@@ -292,20 +427,23 @@ def main(trees=None, forms=FORMS, device="cuda", workload="asset",
                 print(f"{kernel}_trees: {name} {f} {check(name, got, ref)}")
         for name, (_, regs) in libs.items():
             print(f"{kernel}_trees: {name} ({trees[name]}) ptxas: "
-                  + "; ".join(f"form {b}: {r}" for b, r in sorted(
-                      regs.items())))
+                  + "; ".join(f"form {b}: {r}" if b.isdigit() else
+                              f"{b}: {r}" for b, r in sorted(regs.items())))
         ms = {n: {f: [] for f in forms} for n in names}
         for order in (names, names[::-1], names, names[::-1]):
             for n in order:
                 for f in forms:
                     ms[n][f].append(timing.median_ms(
-                        cases[f][0](libs[n][0]), 10))
-    print(f"{kernel}_trees: {kernel.upper()} on the {w.name} workload "
+                        spec.cases[f][0](libs[n][0]), 10))
+        notes = spec.notes(libs) if spec.notes else []
+    print(f"{kernel}_trees: {kernel.upper()} on the {spec.workload} workload "
           f"[{card}], median ms of 10 launches, trees alternated (in order, "
           "reversed, twice)")
     for n in names:
         print(f"  {n:12s} " + "  ".join(
-            f"{f} " + " ".join(f"{t:.4f}" for t in ms[n][f]) for f in forms))
+            f"{f} " + " ".join(f"{t:.5f}" for t in ms[n][f]) for f in forms))
+    for line in notes:
+        print(f"{kernel}_trees: {line}")
     return ms
 
 

@@ -1,10 +1,11 @@
-"""Compare the SASS nvcc emits for K1's and K2's f32 forms between two
-trees of ``gsplat_tpu_torch/csrc``.
+"""Compare the SASS nvcc emits for K1's and K2's f32 forms, and K3x,
+between two trees of ``gsplat_tpu_torch/csrc``.
 
     python -m gsplat_tpu_torch.tools.sass_diff --old <csrc dir> [--new <dir>] \
-        [--kernels forward|backward|all]
+        [--kernels forward|backward|expand|all]
 
-compiles ``composite_fwd.cu`` and ``composite_bwd.cu`` of both trees with
+compiles ``composite_fwd.cu``, ``composite_bwd.cu`` and ``expand.cu`` of
+both trees with
 the build's flags (``_kernels.NVCC_FLAGS``) to cubins, disassembles them
 with ``cuobjdump -sass`` and compares each kernel instruction for
 instruction.  A kernel is named by its template arguments: a form argument
@@ -12,8 +13,9 @@ instruction.  A kernel is named by its template arguments: a form argument
 without it (``<CT, V>``), so is a row-crossing argument false (K1's
 ``<CT, V, F, false>``), and the anonymous namespace's per-file tag is
 dropped.  Prints one line per kernel and exits 1 if any differs or is
-missing from either tree; ``--kernels`` compares K1's (forward) or K2's
-(backward) alone.  Needs ``nvcc`` and ``cuobjdump``, no card.
+missing from either tree; ``--kernels`` compares K1's (forward), K2's
+(backward) or K3x (expand: ``expand_extras_kernel``; K3 is not compared)
+alone.  Needs ``nvcc`` and ``cuobjdump``, no card.
 """
 from __future__ import annotations
 
@@ -26,9 +28,11 @@ import tempfile
 
 from gsplat_tpu_torch import _kernels
 
-SOURCES = {"forward": "composite_fwd.cu", "backward": "composite_bwd.cu"}
+SOURCES = {"forward": "composite_fwd.cu", "backward": "composite_bwd.cu",
+           "expand": "expand.cu"}
 _KERNEL = re.compile(r"(composite_(?:forward|backward)_kernel)"
-                     r"ILi(-?\d+)ELi(-?\d+)E(?:Li(-?\d+)E)?(?:Lb(\d)E)?E")
+                     r"ILi(-?\d+)ELi(-?\d+)E(?:Li(-?\d+)E)?(?:Lb(\d)E)?E"
+                     r"|(expand_extras_kernel)")
 
 
 def _tool(name: str) -> str:
@@ -54,11 +58,14 @@ def kernels(csrc: str, out_dir: str, which=tuple(SOURCES)) -> dict:
                     found[name] = lines
                 m = _KERNEL.search(line)
                 name = (None if m is None else
+                        (m[6], 0, 0, 0, 0) if m[6] else
                         (m[1], int(m[2]), int(m[3]), int(m[4] or 0),
                          int(m[5] or 0)))
                 lines = []
             elif name is not None and line.strip().startswith("/*"):
-                lines.append(line.strip())
+                # cuobjdump pads the columns to the widest instruction of
+                # the file, which another kernel of it may set
+                lines.append(" ".join(line.split()))
         if name is not None:
             found[name] = lines
     return found
@@ -69,7 +76,7 @@ def main(argv=None) -> int:
     ap.add_argument("--old", required=True, help="the parent's csrc")
     ap.add_argument("--new", default=_kernels.CSRC_DIR)
     ap.add_argument("--kernels", default="all",
-                    choices=("forward", "backward", "all"))
+                    choices=("forward", "backward", "expand", "all"))
     args = ap.parse_args(argv)
     which = tuple(SOURCES) if args.kernels == "all" else (args.kernels,)
     with tempfile.TemporaryDirectory() as a, \
@@ -87,8 +94,10 @@ def main(argv=None) -> int:
             status = f"DIFFERS: {len(o)} -> {len(n)} instructions, {diff} " \
                      "lines differ"
         same &= status.startswith("identical")
-        print(f"{key[0]}<CT={key[1]}, V={key[2]}, form={key[3]}"
-              f"{', cross' if key[4] else ''}>: {status}")
+        args = (f"<CT={key[1]}, V={key[2]}, form={key[3]}"
+                f"{', cross' if key[4] else ''}>"
+                if key[0].startswith("composite") else "")
+        print(f"{key[0]}{args}: {status}")
     print(f"sass_diff: {len(old)} kernels in the old tree, {len(new)} in the "
           f"new; {'all identical' if same else 'NOT identical'}")
     return 0 if same else 1

@@ -60,6 +60,25 @@ def median_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in pairs)
 
 
+def event_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Mean ms per call of ``fn`` over ``iters`` back-to-back calls between
+    one pair of CUDA events.  The card waits on the host between calls
+    whenever enqueueing a call takes longer than running it, so for a short
+    kernel this times its wrapper's host work; ``median_ms`` times the
+    device alone."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / iters
+
+
 def measure_row(name: str, fn, bound, counter=None, iters: int = 10,
                 **extra) -> dict:
     """One result row: ``fn``'s median ms, its ``bound`` (ms, "bytes" or

@@ -14,11 +14,12 @@ from __future__ import annotations
 import math
 import os
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from gsplat_tpu_torch.ops.binning import meta_layout
 from gsplat_tpu_torch.ops import composite_cuda as comp
 from gsplat_tpu_torch.ops import segment_reduce as seg
 from gsplat_tpu_torch.ops.composite_ref import ALPHA_MIN
@@ -72,6 +73,12 @@ CULL_INSTANCE_OPS = 29
 CULL_WARP_OPS = 9
 CULL_EDGE_OPS = 60
 QUAD_COEF_OPS = 20
+# Integer operations of one slot's decode in K3 and K3x (csrc/expand.cu),
+# counted at the fp32 rate: k, the three meta fields, the quotient counted
+# as one, the tile and its clamp.  How a kernel finds each slot's owner (a
+# partition of the merge, a binary search) is a cost of its design, not of
+# expansion, and is not counted.
+K3_DECODE_OPS = 12
 
 
 def k2_pair_ops(C, Cg):
@@ -645,6 +652,85 @@ def load_bounds(w: Workload, limits, resident_pairs) -> dict:
             staged_bytes(w, first) + 2 * 4 * T + T * (w.C + 2) * npix * 4,
             k1_ops(resident_pairs, w.C)),
     }
+
+
+def expand_bound(S: int, I: int, n_extra: int = 0):
+    """(ms, by, bytes, operations) of K3 (``n_extra`` 0) or K3x: each of the
+    S sources read once (offset, meta, gid, ``n_extra`` floats), each of the
+    I slots written once (tile, gid, the extras), and one decode a slot."""
+    nbytes = (3 + n_extra) * 4 * S + (2 + n_extra) * 4 * I
+    nops = K3_DECODE_OPS * I
+    return (*bound_ms(nbytes, nops), nbytes, nops)
+
+
+class K3Sources(NamedTuple):
+    """Sources of K3 and K3x built by hand (``k3_sources``)."""
+    offsets: torch.Tensor       # [S] int32, from 0, non-decreasing
+    meta: torch.Tensor          # [S] int32 packed (base, rw >= 1, colstep)
+    gid: torch.Tensor           # [S] int32
+    extras: torch.Tensor        # [n_extra, S] float32
+    rw_bits: int
+    grid_x: int
+    num_tiles: int
+
+    def args(self, I: int):
+        """K3's arguments at capacity I (``binning.expand``'s order)."""
+        return (self.offsets, self.meta, self.gid, I, self.rw_bits,
+                self.grid_x, self.num_tiles)
+
+
+def k3_sources(I: int, n_empty: int, long_len: int, reach: float = 1.2,
+               n_extra: int = 8, seed: int = 0, grid_x: int = 60,
+               grid_y: int = 34, device="cpu") -> K3Sources:
+    """The shapes of work K3's partition must get right, at capacity I,
+    drawn from ``numpy.random.default_rng(seed)``: random sources of 0 to
+    24 slots (a quarter of them empty) over 0.3 I slots, a run of
+    ``n_empty`` empty sources (one tie group with the source after it, cut
+    by every CTA boundary inside it), random sources over 0.2 I, one source
+    of ``long_len`` slots (spanning CTAs that consume no source), then
+    random sources until the slots reach ``reach`` * I (offsets past I, as
+    under overflow).  Meta words are packed as the asset's tile grid packs
+    them (``grid_x`` by ``grid_y`` tiles, align 128), gaussian ids below
+    2^20 and extras N(0, 1): all exact in the JAX kernel's f32 carrier."""
+    rng = np.random.default_rng(seed)
+
+    def random_run(slots):
+        n = slots // 8 + 32
+        lens = rng.integers(1, 25, n)
+        lens[rng.random(n) < 0.25] = 0
+        return lens[:int(np.searchsorted(np.cumsum(lens), slots)) + 1]
+
+    lens = [random_run(int(0.3 * I)), np.zeros(n_empty, np.int64),
+            random_run(int(0.2 * I)), np.array([long_len])]
+    done = int(sum(x.sum() for x in lens))
+    lens.append(random_run(max(1, math.ceil(reach * I) - done)))
+    lens = np.concatenate(lens).astype(np.int64)
+    S = lens.shape[0]
+    offsets = np.concatenate([[0], np.cumsum(lens)[:-1]])
+    num_tiles = grid_x * grid_y
+    _, rw_bits, pack_meta = meta_layout(grid_x, num_tiles, 128)
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+    meta = pack_meta(t(rng.integers(0, num_tiles, S)),
+                     t(rng.integers(1, grid_x + 1, S)),
+                     t(rng.integers(0, 2, S)))
+    return K3Sources(
+        offsets=t(offsets.astype(np.int32)), meta=meta.contiguous(),
+        gid=t(rng.integers(0, 1 << 20, S).astype(np.int32)),
+        extras=t(rng.standard_normal((n_extra, S)).astype(np.float32)),
+        rw_bits=rw_bits, grid_x=grid_x, num_tiles=num_tiles)
+
+
+# The hand-built sources at full scale (chip_smoke.py and k2_trees.py): the
+# asset's instance capacity, a run of 200,000 empty sources, a source of
+# 300,000 slots, offsets reaching 1.2 I.
+K3_FULL_I = 2_359_296
+
+
+def k3_full_sources(device="cuda") -> K3Sources:
+    return k3_sources(K3_FULL_I, 200_000, 300_000, device=device)
 
 
 def gather_bound(variant: str, I: int, R: int, unique_rows: int):

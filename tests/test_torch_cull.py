@@ -38,7 +38,7 @@ def test_expand_extras_plain_matches_jax_kernel():
     rs = tbin.row_sources(pt, gx, gy, 128)
     IR = 4096                                # stage A's shapes below
     assert 0 < int(rs.rows_total) < IR       # the tail fills the rest
-    rw_bits = tbin._meta_layout(gx, gx * gy, 128)[1]
+    rw_bits = tbin.meta_layout(gx, gx * gy, 128)[1]
     ty, gid, ext = tbin.expand_plain(rs.offsets, rs.meta, rs.gid, IR,
                                      rw_bits, gx, gy, extras=rs.extras)
     jt, jg, je = jbin._expand_pallas(
