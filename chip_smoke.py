@@ -65,7 +65,7 @@ Phases (any failure exits non-zero; nothing is caught):
    ``scripts.train.main`` in process with ``--cull exact`` (and the
    same default numerics) on a small
    NeRFstudio scene written with the port — its files written and K3x
-   launched;
+   launched (its model is kept for (h));
 10. (e) the kernel probes of ``gsplat_tpu_torch.tools``: P1 and P2
    ``base`` bit-equal to K1 and K2 at the asset, every variant of P1 to P4
    against its plain version on every 17th tile (and P4 on a seeded
@@ -97,7 +97,24 @@ Phases (any failure exits non-zero; nothing is caught):
    launches bit-equal), and checks the warp map K1 and K2 share against
    the cull's boxes at the shape; its time is printed.  K1's and K2's CTAs per SM at C = 3, 5, 7 and a
    runtime C are printed beside ptxas's registers and spills (K1's also
-   in 4. and (f)).
+   in 4. and (f));
+13. (h) the render and evaluation command lines at 1920x1080: a
+   NeRFstudio scene of (c)'s five cameras with targets rendered from the
+   asset and a model directory with the asset perturbed by seeded noise;
+   ``scripts.render.main(["-m", model, "--eval", "--inter_test_frames",
+   "8", "--video"])`` with the counters zeroed just before (K3 and K1 once
+   per view and path frame, every split's PNGs, the path output and the
+   encoder it names, the test view's PNG bit-equal to ``renderer.render``
+   quantised the same way), its seconds per view and
+   ``render_path_frames``' ms per frame; ``scripts.metrics.main`` with
+   seeded LPIPS weights named for this phase only (SSIM in [0, 1], PSNR
+   and LPIPS finite, each view's PSNR recomputed from the PNGs within
+   1e-6), LPIPS at 1080p on the card within 1e-5 relative of the CPU's;
+   then (d)'s model rendered and scored through the same two CLIs.
+
+Each bound (``tools/workload.py::bound_ms``) is the largest of the bytes
+over the HBM rate, the operations over the fp32 (or bf16) rate and the
+exponentials over the SFU rate, and names the one that binds.
 
 The last three lines are the kernel table as one JSON object (K1 to K4,
 K3x, P1 to P4 with every variant, and K1's and K2's forms), the card line,
@@ -111,8 +128,10 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 from gsplat_tpu_torch.tools.timing import event_ms, median_ms
@@ -331,12 +350,12 @@ def phase_k2(torch, comp, card, k1_args, packed, d_packed, P, C, tested,
               + 2 * 4 * starts.shape[0] + 2 * packed.numel() * 4
               + d_k.numel() * 4)
     nops = wl.K2_TEST_OPS * tested + wl.k2_pair_ops(C, Cg) * composited
-    bound, by = wl.bound_ms(nbytes, nops)
+    bound, by = wl.bound_ms(nbytes, nops, nexp=tested)
     print(f"K2 [{card}]: kernel {ms:.4f} ms (with the zero fill of its "
           f"[{d_k.shape[0]}, {d_k.shape[1]}] output); bound {bound:.4f} ms "
-          f"({nbytes} bytes; {nops} ops = {wl.K2_TEST_OPS} x {tested} pairs "
-          f"up to n_contrib + {wl.k2_pair_ops(C, Cg)} x {composited} "
-          "composited)")
+          f"({by}; {nbytes} bytes; {nops} ops = {wl.K2_TEST_OPS} x {tested} "
+          f"pairs up to n_contrib + {wl.k2_pair_ops(C, Cg)} x {composited} "
+          f"composited; {tested} exponentials, one a pair up to n_contrib)")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": by, "library_ms": None}
 
@@ -817,6 +836,11 @@ class MemoryScene:
             "point_cloud.ply"))
 
 
+# the cameras of phases (c) and (h), near bench.py's
+TRAINER_POSES = [[0.0, 0.6, 4.2], [0.15, 0.6, 4.2], [-0.15, 0.55, 4.25],
+                 [0.0, 0.7, 4.1], [0.08, 0.62, 4.15]]
+
+
 def target_camera(torch, np, renderer, model, T, name, uid):
     """A Camera at bench.py's pose moved to ``T``, with its image, depth and
     segment labels rendered from ``model``."""
@@ -843,8 +867,6 @@ def phase_trainer(torch, np, card, model, thr, extent):
     from the training phase), an opacity reset at 30, test, save and
     checkpoint at the last iteration.  Returns the launch counts of the
     run."""
-    import tempfile
-
     from gsplat_tpu_torch import _kernels, renderer
     from gsplat_tpu_torch.config import OptimizationParams
     from gsplat_tpu_torch.models.gaussians import GaussianModel
@@ -853,10 +875,8 @@ def phase_trainer(torch, np, card, model, thr, extent):
     dev = model.device
     P = model.capacity
     tm = train_model(torch, model)
-    poses = [[0.0, 0.6, 4.2], [0.15, 0.6, 4.2], [-0.15, 0.55, 4.25],
-             [0.0, 0.7, 4.1], [0.08, 0.62, 4.15]]
     cams = [target_camera(torch, np, renderer, tm, T, f"view{i}", i)
-            for i, T in enumerate(poses)]
+            for i, T in enumerate(TRAINER_POSES)]
     gen = torch.Generator(device=dev)
     gen.manual_seed(11)
     tm.params = perturbed(torch, tm.params, P, gen)
@@ -967,17 +987,43 @@ def phase_trainer(torch, np, card, model, thr, extent):
     return launches
 
 
+def write_nerfstudio(np, out_dir, cams, pts, cols):
+    """A NeRFstudio scene of ``cams`` (port ``Camera``s holding their
+    images): each image as an 8-bit PNG, ``transforms.json`` with the first
+    camera's focal lengths, and ``pts`` with their 8-bit colors ``cols`` as
+    ``points3d.ply`` through ``readers.store_ply``."""
+    from PIL import Image
+
+    from gsplat_tpu_torch.core.cameras import fov2focal
+    from gsplat_tpu_torch.data.readers import store_ply
+    os.makedirs(os.path.join(out_dir, "images"), exist_ok=True)
+    frames = []
+    for cam in cams:
+        name = f"{cam.image_name}.png"
+        img = (np.clip(cam.image, 0, 1).transpose(1, 2, 0) * 255).astype(
+            np.uint8)
+        Image.fromarray(img).save(os.path.join(out_dir, "images", name))
+        w2c = np.eye(4)
+        w2c[:3, :3], w2c[:3, 3] = np.asarray(cam.R).T, cam.T
+        c2w = np.linalg.inv(w2c)
+        c2w[:, 1:3] *= -1          # the readers flip NeRF axes back
+        frames.append({"file_path": f"images/{name}",
+                       "transform_matrix": c2w.tolist()})
+    c = cams[0]
+    with open(os.path.join(out_dir, "transforms.json"), "w") as f:
+        json.dump({"fl_x": fov2focal(c.FoVx, c.image_width),
+                   "fl_y": fov2focal(c.FoVy, c.image_height),
+                   "w": c.image_width, "h": c.image_height,
+                   "frames": frames}, f)
+    store_ply(os.path.join(out_dir, "points3d.ply"), pts, cols)
+
+
 def write_scene(torch, np, renderer, out_dir, n=400, n_cams=8, width=128,
                 height=96, device="cuda"):
     """A NeRFstudio scene written with the port: a seeded cloud rendered by
-    ``renderer.render`` from cameras orbiting the origin, its images as
-    8-bit PNGs, ``transforms.json``, and the cloud as ``points3d.ply``
-    through ``readers.store_ply``."""
-    from PIL import Image
-
+    ``renderer.render`` from cameras orbiting the origin (``write_nerfstudio``)."""
     from gsplat_tpu_torch.core import sh as sh_lib
-    from gsplat_tpu_torch.core.cameras import Camera, fov2focal
-    from gsplat_tpu_torch.data.readers import store_ply
+    from gsplat_tpu_torch.core.cameras import Camera
     from gsplat_tpu_torch.models.gaussians import params_from_numpy
     rng = np.random.default_rng(5)
     pts = rng.standard_normal((n, 3)).astype(np.float32) * 0.8
@@ -991,10 +1037,9 @@ def write_scene(torch, np, renderer, out_dir, n=400, n_cams=8, width=128,
         rotation=rng.standard_normal((n, 4)).astype(np.float32),
         opacity=rng.uniform(0.5, 2.5, (n, 1)).astype(np.float32),
         segment=np.zeros((n, NUM_CLASS), np.float32)), device=device)
-    os.makedirs(os.path.join(out_dir, "images"), exist_ok=True)
     fovx = math.radians(60.0)
     fovy = 2 * math.atan(math.tan(fovx / 2) * height / width)
-    frames = []
+    cams = []
     for i in range(n_cams):
         ang = 2 * math.pi * i / n_cams
         campos = np.array([4 * math.sin(ang), 0.6, 4 * math.cos(ang)])
@@ -1004,62 +1049,46 @@ def write_scene(torch, np, renderer, out_dir, n=400, n_cams=8, width=128,
         up = np.cross(fwd, right)
         up /= np.linalg.norm(up)
         r_w2c = np.stack([right, up, fwd])
-        t_w2c = -r_w2c @ campos
-        cam = Camera(colmap_id=i, R=r_w2c.T, T=t_w2c, FoVx=fovx, FoVy=fovy,
-                     image=np.zeros((3, height, width), np.float32),
+        cam = Camera(colmap_id=i, R=r_w2c.T, T=-r_w2c @ campos, FoVx=fovx,
+                     FoVy=fovy, image=np.zeros((3, height, width), np.float32),
                      image_name=f"frame_{i:03d}", uid=i)
-        img = renderer.render(cam, model, device=device)["render"]
-        img = (img.clamp(0, 1).permute(1, 2, 0).cpu().numpy() * 255).astype(
-            np.uint8)
-        Image.fromarray(img).save(
-            os.path.join(out_dir, "images", f"frame_{i:03d}.png"))
-        w2c = np.eye(4)
-        w2c[:3, :3], w2c[:3, 3] = r_w2c, t_w2c
-        c2w = np.linalg.inv(w2c)
-        c2w[:, 1:3] *= -1          # the readers flip NeRF axes back
-        frames.append({"file_path": f"images/frame_{i:03d}.png",
-                       "transform_matrix": c2w.tolist()})
-    with open(os.path.join(out_dir, "transforms.json"), "w") as f:
-        json.dump({"fl_x": fov2focal(fovx, width),
-                   "fl_y": fov2focal(fovy, height), "w": width, "h": height,
-                   "frames": frames}, f)
-    store_ply(os.path.join(out_dir, "points3d.ply"), pts,
-              (cols * 255).astype(np.uint8))
+        cam.image = renderer.render(cam, model, device=device)[
+            "render"].clamp(0, 1).cpu().numpy()
+        cams.append(cam)
+    write_nerfstudio(np, out_dir, cams, pts, (cols * 255).astype(np.uint8))
 
 
-def phase_cli(torch, np, card):
+def phase_cli(torch, np, card, work):
     """(d) The command line, in process, on a NeRFstudio scene written with
-    the port: ``--cull exact --disable_gui_server`` on the card.  Returns
-    its launch counts."""
-    import tempfile
-
+    the port under ``work``: ``--cull exact --disable_gui_server`` on the
+    card.  Returns its launch counts and the model directory, which phase
+    (h) renders and scores."""
     from gsplat_tpu_torch import _kernels, renderer
     from gsplat_tpu_torch.scripts import train as train_cli
     t0 = time.perf_counter()
     iters = 30
-    with tempfile.TemporaryDirectory() as tmp:
-        scene_dir = os.path.join(tmp, "scene")
-        out = os.path.join(tmp, "out")
-        write_scene(torch, np, renderer, scene_dir)
-        torch.cuda.synchronize()
-        _kernels.reset_launch_counts()
-        train_cli.main([
-            "-s", scene_dir, "-m", out, "--cull", "exact",
-            "--disable_gui_server", "--iterations_override", str(iters),
-            "--test_iterations", str(iters), "--densify_from_iter", "10",
-            "--densification_interval", "10",
-            "--densify_grad_threshold", "2e-5", "--eval"])
-        torch.cuda.synchronize()
-        launches = dict(_kernels.launch_counts)
-        for f in ("cfg_args", "train_log.jsonl", "eval_log.jsonl",
-                  "cameras.json", "input.ply",
-                  os.path.join("point_cloud", f"iteration_{iters}",
-                               "point_cloud.ply")):
-            check(os.path.exists(os.path.join(out, f)), f"cli: no {f}")
-        with open(os.path.join(out, "train_log.jsonl")) as f:
-            log = [json.loads(x) for x in f]
-        with open(os.path.join(out, "eval_log.jsonl")) as f:
-            evals = [json.loads(x) for x in f]
+    scene_dir = os.path.join(work, "cli_scene")
+    out = os.path.join(work, "cli_model")
+    write_scene(torch, np, renderer, scene_dir)
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    train_cli.main([
+        "-s", scene_dir, "-m", out, "--cull", "exact",
+        "--disable_gui_server", "--iterations_override", str(iters),
+        "--test_iterations", str(iters), "--densify_from_iter", "10",
+        "--densification_interval", "10",
+        "--densify_grad_threshold", "2e-5", "--eval"])
+    torch.cuda.synchronize()
+    launches = dict(_kernels.launch_counts)
+    for f in ("cfg_args", "train_log.jsonl", "eval_log.jsonl",
+              "cameras.json", "input.ply",
+              os.path.join("point_cloud", f"iteration_{iters}",
+                           "point_cloud.ply")):
+        check(os.path.exists(os.path.join(out, f)), f"cli: no {f}")
+    with open(os.path.join(out, "train_log.jsonl")) as f:
+        log = [json.loads(x) for x in f]
+    with open(os.path.join(out, "eval_log.jsonl")) as f:
+        evals = [json.loads(x) for x in f]
     check(launches["expand_extras"] >= iters,
           f"cli: K3x launched {launches['expand_extras']} times")
     check(all(launches[k] > 0 for k in CULL_KERNELS), "cli: a kernel of the "
@@ -1069,7 +1098,214 @@ def phase_cli(torch, np, card):
           f"(8 cameras, 400 gaussians), launches {json.dumps(launches)}; "
           f"train_log {json.dumps(log)}; eval {json.dumps(evals)}; phase "
           f"{time.perf_counter() - t0:.1f} s")
-    return launches
+    return launches, out
+
+
+# (h) the render and evaluation command lines on the card: the asset at
+# 1920x1080 through scripts.render and scripts.metrics, then phase (d)'s
+# model through the same two
+RENDER_PATH_FRAMES = 8
+LPIPS_NET = "alex"
+
+
+def write_lpips_weights(np, path, seed=3):
+    """Seeded LPIPS_NET weights in the npz layout ``viz/lpips.py`` reads
+    (the layout ``tools/convert_lpips_weights.py`` writes): N(0, 0.05)
+    convs and biases, U(0, 0.2) linear weights."""
+    from gsplat_tpu_torch.viz.lpips import NET_SPECS
+    rng = np.random.default_rng(seed)
+    spec = NET_SPECS[LPIPS_NET]
+    z = {"net_type": np.asarray(LPIPS_NET)}
+    cin = 3
+    convs = [arg for kind, arg in spec["layers"] if kind == "conv"]
+    for i, (cout, k, _, _) in enumerate(convs):
+        z[f"conv{i}_w"] = (rng.standard_normal((cout, cin, k, k)) * 0.05
+                           ).astype(np.float32)
+        z[f"conv{i}_b"] = (rng.standard_normal(cout) * 0.05).astype(
+            np.float32)
+        cin = cout
+    for j, c in enumerate(spec["channels"]):
+        z[f"lin{j}_w"] = rng.uniform(0, 0.2, c).astype(np.float32)
+    np.savez(path, **z)
+
+
+def run_cli(main, argv, torch=None, module=None, timed=()):
+    """``main(argv)`` with its standard output captured and echoed; returns
+    what it printed and {name: [seconds of each call]} of the functions of
+    ``module`` named in ``timed``, each call synchronised on the card."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    seconds = {name: [] for name in timed}
+    orig = {name: getattr(module, name) for name in timed}
+
+    def clocked(name):
+        def call(*args, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = orig[name](*args, **kw)
+            torch.cuda.synchronize()
+            seconds[name].append(time.perf_counter() - t)
+            return out
+        return call
+
+    try:
+        for name in timed:
+            setattr(module, name, clocked(name))
+        with contextlib.redirect_stdout(buf):
+            main(argv)
+    finally:
+        for name, fn in orig.items():
+            setattr(module, name, fn)
+    sys.stdout.write(buf.getvalue())
+    return buf.getvalue(), seconds
+
+
+def phase_render_cli(torch, np, card, model, work, cli_model):
+    """(h) The render and evaluation command lines at 1920x1080: a
+    NeRFstudio scene of the five cameras of phase (c) with targets rendered
+    from the asset, and a model directory holding ``cfg_args`` and the
+    asset perturbed by seeded noise as the PLY of iteration 1.  The render
+    CLI with the counters zeroed just before (K3 and K1 once per view and
+    path frame; every split's PNGs; the path video or frames and the
+    encoder it names; the test view's PNG bit-equal to ``renderer.render``
+    of the same camera, quantised the same way), its seconds per view and
+    ``render_path_frames``' ms per frame; the metrics CLI with seeded
+    LPIPS weights named for this phase only (SSIM in [0, 1], PSNR and
+    LPIPS finite, each view's PSNR equal to the one recomputed from the
+    PNGs read back within 1e-6); LPIPS at 1080p on the card against the
+    CPU within 1e-5 relative; then phase (d)'s model through both CLIs."""
+    from argparse import Namespace
+
+    from PIL import Image
+
+    from gsplat_tpu_torch import _kernels, renderer
+    from gsplat_tpu_torch.core import sh as sh_lib
+    from gsplat_tpu_torch.data.scene import Scene
+    from gsplat_tpu_torch.models.gaussians import (GaussianModel,
+                                                   params_from_numpy)
+    from gsplat_tpu_torch.scripts import metrics as metrics_cli
+    from gsplat_tpu_torch.scripts import render as render_cli
+    from gsplat_tpu_torch.train import losses as L
+    from gsplat_tpu_torch.viz.lpips import LPIPS
+    t0 = time.perf_counter()
+    dev = model.device
+    P = model.capacity
+    scene_dir = os.path.join(work, "render_scene")
+    model_dir = os.path.join(work, "render_model")
+    cams = [target_camera(torch, np, renderer, model, T, f"view{i}", i)
+            for i, T in enumerate(TRAINER_POSES)]
+    xyz = model.params.xyz.cpu().numpy()
+    rgb = sh_lib.sh_to_rgb_dc(model.params.features_dc[:, 0]).clamp(0, 1)
+    write_nerfstudio(np, scene_dir, cams, xyz,
+                     (rgb.cpu().numpy() * 255).astype(np.uint8))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    noisy = perturbed(torch, model.params, P, gen)
+    params_from_numpy({k: v.cpu().numpy() for k, v in
+                       noisy._asdict().items()}, device=dev).save_ply(
+        os.path.join(model_dir, "point_cloud", "iteration_1",
+                     "point_cloud.ply"))
+    cfg = Namespace(sh_degree=3, source_path=scene_dir, model_path=model_dir,
+                    images="images", resolution=1, white_background=False,
+                    data_device="cuda", eval=True, using_depth=False,
+                    using_seg=False, num_class=NUM_CLASS,
+                    able_appearance_embedding=False)
+    with open(os.path.join(model_dir, "cfg_args"), "w") as f:
+        f.write(str(cfg))
+    t_setup = time.perf_counter() - t0
+
+    n_views = len(cams)
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    t1 = time.perf_counter()
+    said, seconds = run_cli(render_cli.main, [
+        "-m", model_dir, "--eval", "--inter_test_frames",
+        str(RENDER_PATH_FRAMES), "--video"], torch, render_cli,
+        ("render_set", "render_path_frames"))
+    torch.cuda.synchronize()
+    t_cli = time.perf_counter() - t1
+    launches = dict(_kernels.launch_counts)
+    want = n_views + RENDER_PATH_FRAMES
+    check(launches["expand"] == want and launches["composite_forward"] == want,
+          f"render CLI: K3 and K1 did not launch once per view and path "
+          f"frame ({want}): {json.dumps(launches)}")
+    for split, n in (("train", n_views - 1), ("test", 1)):
+        for sub in ("renders", "gt", "depth"):
+            d = os.path.join(model_dir, split, "ours_1", sub)
+            check(len(os.listdir(d)) == n,
+                  f"render CLI: {split}/{sub} holds {os.listdir(d)}")
+    enc = re.search(r"\[video\] encoder (\w+)", said)
+    check(enc is not None, "render CLI: no encoder named")
+    video = os.path.join(model_dir, "path.mp4")
+    frames_dir = os.path.join(model_dir, "path_frames")
+    check(len(os.listdir(frames_dir)) == RENDER_PATH_FRAMES
+          and (enc[1] == "none" or os.path.getsize(video) > 0),
+          f"render CLI: path output ({enc[0]})")
+
+    s_view = sum(seconds["render_set"]) / n_views
+    ms_frame = sum(seconds["render_path_frames"]) * 1e3 / RENDER_PATH_FRAMES
+
+    gm = GaussianModel(3, num_class=NUM_CLASS, capacity=1, device=dev)
+    scene = Scene(cfg, gm, load_iteration=-1, shuffle=False)
+    out = renderer.render(scene.getTestCameras()[0], gm, bg_color=np.zeros(3),
+                          device=dev)
+    png = np.asarray(Image.open(os.path.join(
+        model_dir, "test", "ours_1", "renders", "00000.png")))
+    check(np.array_equal(png, render_cli.quantize(out["render"].cpu().numpy())),
+          "render CLI: the test view's PNG differs from renderer.render")
+
+    weights = os.path.join(work, "lpips_seeded.npz")
+    write_lpips_weights(np, weights)
+    os.environ["GSPLAT_LPIPS_WEIGHTS"] = weights
+    try:
+        t4 = time.perf_counter()
+        run_cli(metrics_cli.main, ["-m", model_dir])
+        t_metrics = time.perf_counter() - t4
+    finally:
+        del os.environ["GSPLAT_LPIPS_WEIGHTS"]
+    with open(os.path.join(model_dir, "results.json")) as f:
+        res = json.load(f)["ours_1"]
+    with open(os.path.join(model_dir, "per_view.json")) as f:
+        per_view = json.load(f)["ours_1"]
+    check(0 <= res["SSIM"] <= 1 and math.isfinite(res["PSNR"])
+          and math.isfinite(res["LPIPS"]), f"metrics CLI: {res}")
+    tdir = os.path.join(model_dir, "test", "ours_1")
+    renders, gts, names = metrics_cli.read_images(
+        os.path.join(tdir, "renders"), os.path.join(tdir, "gt"))
+    for r, g, name in zip(renders, gts, names):
+        again = float(L.psnr(torch.from_numpy(r).to(dev),
+                             torch.from_numpy(g).to(dev)))
+        check(abs(again - per_view["PSNR"][name]) <= 1e-6,
+              f"metrics CLI: {name} PSNR {per_view['PSNR'][name]} against "
+              f"{again} from the PNGs")
+    lp_card = LPIPS(weights, device=dev)(renders[0], gts[0])
+    lp_cpu = LPIPS(weights, device="cpu")(renders[0], gts[0])
+    check(abs(lp_card - lp_cpu) <= 1e-5 * abs(lp_cpu),
+          f"LPIPS at {W}x{H}: card {lp_card} against the CPU's {lp_cpu}")
+
+    _kernels.reset_launch_counts()
+    run_cli(render_cli.main, ["-m", cli_model])
+    run_cli(metrics_cli.main, ["-m", cli_model])
+    cli_launches = dict(_kernels.launch_counts)
+    with open(os.path.join(cli_model, "results.json")) as f:
+        cli_res = json.load(f)
+    check(cli_launches["expand_extras"] == 0
+          and cli_launches["composite_forward"] > 0
+          and all(0 <= m["SSIM"] <= 1 and math.isfinite(m["PSNR"])
+                  for m in cli_res.values()),
+          f"phase (d)'s model through the CLIs: {json.dumps(cli_res)}, "
+          f"launches {json.dumps(cli_launches)}")
+    print(f"render CLI (h) {W}x{H} [{card}]: {t_cli:.2f} s for {n_views} "
+          f"views and {RENDER_PATH_FRAMES} path frames with the scene and "
+          f"PLY load and the video ({enc[1]}); render_set {s_view:.3f} s "
+          f"per view (render and three PNG encodes); render_path_frames "
+          f"{ms_frame:.2f} ms per frame (render and readback); launches "
+          f"{json.dumps(launches)}")
+    print(f"metrics CLI (h) [{card}]: {json.dumps(res)} in {t_metrics:.2f} s "
+          f"(LPIPS '{LPIPS_NET}' on seeded weights: card {lp_card:.9g}, CPU "
+          f"{lp_cpu:.9g}); phase (d)'s 128x96 model {json.dumps(cli_res)}; "
+          f"setup {t_setup:.1f} s, phase {time.perf_counter() - t0:.1f} s")
 
 
 # (e) the kernel probes.  Every 17th tile of the asset (120 of 2,040,
@@ -1316,7 +1552,7 @@ def phase_form_kernels(torch, card, w):
                          unpack=Cg if form.feat_packed else 0)
         bytes1 = (table.numel() * 4 + int(counts.sum()) * 4 + 2 * 4 * T
                   + out_k.numel() * 4)
-        bound1, by1 = wl.bound_ms(bytes1, ops1)
+        bound1, by1 = wl.bound_ms(bytes1, ops1, nexp=culled["live"])
         rows[f"K1 {name}"] = {
             "max_abs_err": err1, "ms": ms1, "plain_ms": plain_ms,
             "bound_ms": bound1, "bound_by": by1, "library_ms": None}
@@ -1340,27 +1576,29 @@ def phase_form_kernels(torch, card, w):
         nc = out_k[:, C + 1]
         limit = torch.minimum(nc.amax(dim=1).long(), counts.long())
         staged, n_real = wl.staged_instances(w, limit)
-        ops2 = ((wl.K2_TEST_OPS - int(form.mxu_power)) * int(nc.sum())
+        tested2 = int(nc.sum())
+        ops2 = ((wl.K2_TEST_OPS - int(form.mxu_power)) * tested2
                 + wl.k2_pair_ops(C, Cg) * culled["composited"])
         if form.feat_packed:
             ops2 += (wl.UNPACK_OPS * Cg * n_real
                      + wl.PACK_OPS * ((Cg + 1) // 2) * staged)
         bytes2 = (table.numel() * 4 + int(counts.sum()) * 4 + 2 * 4 * T
                   + 2 * out_k.numel() * 4 + d_k.numel() * 4)
-        bound2, by2 = wl.bound_ms(bytes2, ops2)
+        bound2, by2 = wl.bound_ms(bytes2, ops2, nexp=tested2)
         rows[f"K2 {name}"] = {
             "max_abs_err": err2, "ms": ms2, "plain_ms": plain2_ms,
             "bound_ms": bound2, "bound_by": by2, "library_ms": None}
         print(f"forms (f) [{card}] {name}: K1 vs plain max |diff| {err1:.3g}"
               f", n_contrib equal; {occ1}; {ms1:.4f} ms (plain "
               f"{plain_ms:.1f} ms), "
-              f"bound {bound1:.4f} ms ({bytes1} bytes, {ops1} ops; pairs "
+              f"bound {bound1:.4f} ms ({by1}; {bytes1} bytes, {ops1} ops; "
+              f"pairs "
               f"{culled['live']} live after the cull, "
               f"{culled['composited']} composited)"
               f"; K2 vs plain max |diff| {err2:.3g} (worst column "
               f"{worst:.2e} of its largest), {ms2:.4f} ms (plain "
-              f"{plain2_ms:.1f} ms), bound {bound2:.4f} ms ({bytes2} bytes, "
-              f"{ops2} ops)")
+              f"{plain2_ms:.1f} ms), bound {bound2:.4f} ms ({by2}; {bytes2} "
+              f"bytes, {ops2} ops, {tested2} exponentials)")
     print(f"forms (f): kernels phase {time.perf_counter() - t0:.1f} s")
     return rows
 
@@ -1943,7 +2181,9 @@ def main():
 
     # ---- 9. the Trainer at 1080p with exact cull, and the command line -----
     trainer_launches = phase_trainer(torch, np, card, model, thr, extent)
-    phase_cli(torch, np, card)
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    atexit.register(shutil.rmtree, work, True)
+    _, cli_model = phase_cli(torch, np, card, work)
 
     # per-stage times on the main path's own inputs
     tile_k, gid_k = bin_lib.expand(*k3_args)
@@ -1997,12 +2237,16 @@ def main():
     # ---- 12. (g) K1 and K2 at 16x16 tiles ----------------------------------
     phase_tiles(card, tile_children)
 
+    # ---- 13. (h) the render and evaluation command lines at 1080p ----------
+    phase_render_cli(torch, np, card, model, work, cli_model)
+
     # bounds: each input read once, each output written once
     k3_bound, k3_by, k3_bytes, k3_ops = wl.expand_bound(S, cap)
     k1_bytes = (table.numel() * 4 + int(counts.sum()) * 4 + 2 * 4 * num_tiles
                 + packed_k.numel() * 4)
     k1_ops = wl.k1_ops(w.culled, C)
-    k1_bound, k1_by = wl.bound_ms(k1_bytes, k1_ops)
+    k1_exps = w.culled["live"]
+    k1_bound, k1_by = wl.bound_ms(k1_bytes, k1_ops, nexp=k1_exps)
     print(f"K3 bound: {k3_bytes} bytes, {k3_ops} ops (not counted, a cost "
           f"of its design: the {k3_part.probes} offsets its partition "
           f"probes, {4 * k3_part.probes} bytes); K1 bound: {k1_bytes} "
@@ -2011,7 +2255,9 @@ def main():
           f"pair, {1 + 2 * C} more per composited pair; the cull's "
           f"{wl.CULL_INSTANCE_OPS} per instance a tile needs, "
           f"{wl.CULL_WARP_OPS} per instance and warp, {wl.CULL_EDGE_OPS} more "
-          "where the warp's box does not hold the mean)")
+          f"where the warp's box does not hold the mean), {k1_exps} "
+          f"exponentials (one a live pair); bound {k1_bound:.5f} ms by "
+          f"{k1_by}")
     kernels = [
         {"name": "K3 expand", "route": "cuda",
          "source": "gsplat_tpu_torch/csrc/expand.cu",

@@ -9,8 +9,9 @@ loaded with ``ctypes`` (``_kernels.py``).
 This package imports neither ``jax`` nor anything of ``gsplat_tpu``.
 
 Ported so far (the serving path, ``renderer.render``; the training step,
-``train.trainer.make_train_step``; and the training command line,
-``scripts/train.py`` over ``train.trainer.Trainer``):
+``train.trainer.make_train_step``; the training command line,
+``scripts/train.py`` over ``train.trainer.Trainer``; and the render and
+evaluation command lines):
 
 - ``core``    : cameras (numpy), quaternion/covariance math, SH evaluation
 - ``data``    : PLY reading and writing, COLMAP parsers, the COLMAP /
@@ -24,7 +25,10 @@ Ported so far (the serving path, ``renderer.render``; the training step,
                 the O(P*H*W) oracle
 - ``train``   : losses, learning-rate schedules, the train step, ``Trainer``
 - ``config``  : the argparse parameter groups
-- ``scripts`` : ``train``
+- ``scripts`` : ``train``, ``train_segment``, ``render``, ``metrics``,
+                ``full_eval``
+- ``viz``     : camera paths (``camera_trajectory``), videos, LPIPS
+- ``utils``   : ``safe_state``, ``mkdir_p``, ``searchForMaxIteration``
 - ``tools``   : the kernel probes (P1 to P4: K1 and K2 under knockouts,
                 K1's loads against its math, an in-kernel gather, f32
                 against bf16x2), ``python -m gsplat_tpu_torch.tools.bench_*``

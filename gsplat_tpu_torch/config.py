@@ -134,9 +134,10 @@ class PerformanceParams(ParamGroup):
         super().__init__(parser, "Performance Parameters")
 
 
-def get_combined_args(parser: ArgumentParser):
-    """Merge saved cfg_args with CLI (arguments/__init__.py:115-141)."""
-    cmdline = sys.argv[1:]
+def get_combined_args(parser: ArgumentParser, argv=None):
+    """Merge saved cfg_args with CLI (arguments/__init__.py:115-141);
+    ``argv`` defaults to ``sys.argv[1:]``."""
+    cmdline = sys.argv[1:] if argv is None else list(argv)
     cfgfile_string = "Namespace()"
     args_cmdline = parser.parse_args(cmdline)
     try:

@@ -23,6 +23,7 @@ from gsplat_tpu_torch.core.cameras import (Camera, MiniCam, fov2focal,
                                            get_world2view2)
 from gsplat_tpu_torch.data.readers import (CameraInfo,
                                            scene_load_type_callbacks)
+from gsplat_tpu_torch.utils.general import search_for_max_iteration
 
 _WARNED = False
 
@@ -211,12 +212,6 @@ def camera_to_json(uid: int, cam: CameraInfo) -> dict:
         "fy": fov2focal(cam.FovY, cam.height),
         "fx": fov2focal(cam.FovX, cam.width),
     }
-
-
-def search_for_max_iteration(folder: str) -> int:
-    """utils/system_utils.py:22-28."""
-    saved = [int(f.split("_")[-1]) for f in os.listdir(folder)]
-    return max(saved)
 
 
 class Scene:

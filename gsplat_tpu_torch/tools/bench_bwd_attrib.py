@@ -18,7 +18,8 @@ def measure(w, variants, stats, iters=10):
     """Rows (name, ms, bound, launches) of P2's ``variants`` on ``w``."""
     return [timing.measure_row(
         v, lambda v=v: probes.probe_backward(v, *w.k2_args),
-        wl.bound_ms(wl.k2_bytes(w), wl.bwd_ops(v, w.C, w.Cg, stats)),
+        wl.bound_ms(wl.k2_bytes(w), wl.bwd_ops(v, w.C, w.Cg, stats),
+                    nexp=wl.bwd_exps(v, stats)),
         "probe_backward", iters) for v in variants]
 
 

@@ -29,7 +29,8 @@ def measure(w, stats, iters=10):
         res[:, w.C + 1])
     bounds = wl.load_bounds(w, limits, res_pairs)
     bounds["full"] = wl.bound_ms(wl.k1_bytes(w), wl.fwd_ops("base", w.C,
-                                                            stats))
+                                                            stats),
+                                 nexp=wl.fwd_exps("base", stats))
     fns = {"full": lambda: comp.composite_forward(*w.k1_args),
            "compute_resident": lambda: probes.probe_load(
                "compute_resident", *w.k1_args)}

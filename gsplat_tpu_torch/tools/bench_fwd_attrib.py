@@ -19,7 +19,8 @@ def measure(w, variants, stats, iters=10):
     """Rows (name, ms, bound, launches) of P1's ``variants`` on ``w``."""
     return [timing.measure_row(
         v, lambda v=v: probes.probe_forward(v, *w.k1_args),
-        wl.bound_ms(wl.k1_bytes(w), wl.fwd_ops(v, w.C, stats)),
+        wl.bound_ms(wl.k1_bytes(w), wl.fwd_ops(v, w.C, stats),
+                    nexp=wl.fwd_exps(v, stats)),
         "probe_forward", iters) for v in variants]
 
 

@@ -1,8 +1,11 @@
-"""Compare the SASS nvcc emits for K1's and K2's f32 forms, and K3x,
-between two trees of ``gsplat_tpu_torch/csrc``.
+"""Compare the SASS nvcc emits for K1's and K2's f32 forms, K3x and P4,
+between two trees of ``gsplat_tpu_torch/csrc``, or count one opcode in a
+tree's kernels.
 
     python -m gsplat_tpu_torch.tools.sass_diff --old <csrc dir> [--new <dir>] \
-        [--kernels forward|backward|expand|all]
+        [--kernels forward|backward|expand|dtype|all]
+    python -m gsplat_tpu_torch.tools.sass_diff --count MUFU.EX2 \
+        --kernels dtype [--new <dir>]
 
 compiles ``composite_fwd.cu``, ``composite_bwd.cu`` and ``expand.cu`` of
 both trees with
@@ -14,8 +17,11 @@ without it (``<CT, V>``), so is a row-crossing argument false (K1's
 ``<CT, V, F, false>``), and the anonymous namespace's per-file tag is
 dropped.  Prints one line per kernel and exits 1 if any differs or is
 missing from either tree; ``--kernels`` compares K1's (forward), K2's
-(backward) or K3x (expand: ``expand_extras_kernel``; K3 is not compared)
-alone.  Needs ``nvcc`` and ``cuobjdump``, no card.
+(backward), K3x (expand: ``expand_extras_kernel``; K3 is not compared)
+or P4's two forms (dtype) alone.  ``--count`` prints, for each kernel of
+the ``--new`` tree, the instructions whose opcode starts with the given
+one (P4's bf16 form against its f32 form: the exponentials a pair takes).
+Needs ``nvcc`` and ``cuobjdump``, no card.
 """
 from __future__ import annotations
 
@@ -29,10 +35,10 @@ import tempfile
 from gsplat_tpu_torch import _kernels
 
 SOURCES = {"forward": "composite_fwd.cu", "backward": "composite_bwd.cu",
-           "expand": "expand.cu"}
+           "expand": "expand.cu", "dtype": "probe_dtype.cu"}
 _KERNEL = re.compile(r"(composite_(?:forward|backward)_kernel)"
                      r"ILi(-?\d+)ELi(-?\d+)E(?:Li(-?\d+)E)?(?:Lb(\d)E)?E"
-                     r"|(expand_extras_kernel)")
+                     r"|(expand_extras_kernel|probe_dtype_(?:f32|bf16))")
 
 
 def _tool(name: str) -> str:
@@ -40,8 +46,8 @@ def _tool(name: str) -> str:
 
 
 def kernels(csrc: str, out_dir: str, which=tuple(SOURCES)) -> dict:
-    """{(kernel, CT, V, form, cross): [SASS lines]} of the f32 sources in
-    ``csrc`` (``which``: "forward", "backward")."""
+    """{(kernel, CT, V, form, cross): [SASS lines]} of the sources in
+    ``csrc`` (``which``: keys of SOURCES)."""
     flags = [f for f in _kernels.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
     found = {}
     for src in (SOURCES[k] for k in which):
@@ -71,14 +77,35 @@ def kernels(csrc: str, out_dir: str, which=tuple(SOURCES)) -> dict:
     return found
 
 
+def opcode(line: str) -> str:
+    """The opcode of a SASS line as ``kernels`` keeps it ("/*0090*/ @P0
+    MUFU.EX2 R5, R4 ;..."), past its predicate; an encoding line gives its
+    hex word."""
+    toks = line.split()
+    return toks[2] if toks[1].startswith("@") else toks[1]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--old", required=True, help="the parent's csrc")
+    ap.add_argument("--old", help="the parent's csrc")
     ap.add_argument("--new", default=_kernels.CSRC_DIR)
     ap.add_argument("--kernels", default="all",
-                    choices=("forward", "backward", "expand", "all"))
+                    choices=(*SOURCES, "all"))
+    ap.add_argument("--count", metavar="OPCODE",
+                    help="count OPCODE in the --new tree's kernels")
     args = ap.parse_args(argv)
     which = tuple(SOURCES) if args.kernels == "all" else (args.kernels,)
+    if args.count:
+        with tempfile.TemporaryDirectory() as b:
+            for key, lines in sorted(kernels(args.new, b, which).items(),
+                                     key=str):
+                n = sum(opcode(line).startswith(args.count)
+                        for line in lines)
+                print(f"{key[0]}: {n} {args.count}, {len(lines)} "
+                      "instructions")
+        return 0
+    if not args.old:
+        ap.error("--old is needed unless --count is given")
     with tempfile.TemporaryDirectory() as a, \
             tempfile.TemporaryDirectory() as b:
         old, new = kernels(args.old, a, which), kernels(args.new, b, which)

@@ -38,6 +38,12 @@ FP32_OPS_PER_S = 67e12       # fp32 outside the tensor cores
 # twice the fp32 rate, as packed pairs); the data sheet's 989e12 is the
 # tensor cores' rate, which elementwise math cannot reach.
 BF16_OPS_PER_S = 133.8e12
+# Base-2 exponentials (MUFU.EX2 on the special function units): 16 results
+# a clock an SM on compute capability 9.0 (CUDA C++ Programming Guide,
+# arithmetic instruction throughput, "32-bit floating-point base-2
+# exponential"), 132 SMs at the 1980 MHz SM clock.  exp2f, expf and h2exp
+# (two ex2.approx.f32 a bf16 pair) all issue there, apart from the fp32 pipe.
+SFU_RESULTS_PER_S = 132 * 16 * 1.98e9
 
 # fp32 operations of K1 (csrc/composite_fwd.cuh) per (pixel, instance) pair,
 # exp2 counted as one: a tested pair takes dx, dy (2), power (9), the exp2
@@ -85,12 +91,15 @@ def k2_pair_ops(C, Cg):
     return 24 + 2 * C + 2 * Cg
 
 
-def bound_ms(nbytes, nops, ops_per_s=FP32_OPS_PER_S):
-    """(ms, "bytes" or "operations"): the larger of the bytes over the HBM
-    rate and the operations over ``ops_per_s``."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / ops_per_s * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+def bound_ms(nbytes, nops, ops_per_s=FP32_OPS_PER_S, nexp=0):
+    """(ms, "bytes", "operations" or "exponentials"): the largest of the
+    bytes over the HBM rate, the operations over ``ops_per_s`` and the
+    ``nexp`` exponentials over the SFU rate, and which one it is."""
+    terms = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "operations": nops / ops_per_s * 1e3,
+             "exponentials": nexp / SFU_RESULTS_PER_S * 1e3}
+    by = max(terms, key=terms.get)
+    return terms[by], by
 
 
 @dataclass
@@ -592,6 +601,23 @@ def fwd_ops(variant: str, C: int, s: dict) -> int:
     }[variant]
 
 
+def fwd_exps(variant: str, s: dict) -> int:
+    """P1's exponentials: one per pair its walk tests (K1's after the cull,
+    or every pair of the tile for the variants without K1's termination);
+    no_exp takes none."""
+    if variant == "no_exp":
+        return 0
+    if variant in ("no_cond", "no_scan", "alpha_only", "stripped"):
+        return s["all"]
+    return s["culled"]["live"]
+
+
+def bwd_exps(variant: str, s: dict) -> int:
+    """P2's exponentials: one per pair up to n_contrib; no_alpha takes
+    none."""
+    return 0 if variant == "no_alpha" else s["k2_tested"]
+
+
 def bwd_ops(variant: str, C: int, Cg: int, s: dict) -> int:
     """P2's operations per variant: K2's count on its walk (18 per pair up
     to n_contrib, 24 + 2C + 2Cg per composited pair); ``exp`` drops the
@@ -650,7 +676,7 @@ def load_bounds(w: Workload, limits, resident_pairs) -> dict:
             staged + ranges + (T + per - 1) // per * npix * 4, 0),
         "compute_resident": bound_ms(
             staged_bytes(w, first) + 2 * 4 * T + T * (w.C + 2) * npix * 4,
-            k1_ops(resident_pairs, w.C)),
+            k1_ops(resident_pairs, w.C), nexp=resident_pairs["live"]),
     }
 
 
@@ -748,7 +774,9 @@ DTYPE_OPS = 11
 
 def dtype_bound(n: int, itemsize: int, n_programs: int, n_iters: int, bf16):
     """(ms, by) of P4: 11 operations per element and round in every
-    program, over the fp32 rate or the bf16 one; x read and out written
-    once."""
-    return bound_ms(2 * n * itemsize, DTYPE_OPS * n * n_programs * n_iters,
-                    BF16_OPS_PER_S if bf16 else FP32_OPS_PER_S)
+    program, over the fp32 rate or the bf16 one, and one exponential per
+    element and round in either form (h2exp of a bf16 pair is two
+    MUFU.EX2); x read and out written once."""
+    rounds = n * n_programs * n_iters
+    return bound_ms(2 * n * itemsize, DTYPE_OPS * rounds,
+                    BF16_OPS_PER_S if bf16 else FP32_OPS_PER_S, nexp=rounds)

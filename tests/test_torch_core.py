@@ -140,6 +140,11 @@ def test_import_is_jax_free():
             "gsplat_tpu_torch.data.ply, gsplat_tpu_torch.data.colmap, "
             "gsplat_tpu_torch.data.readers, gsplat_tpu_torch.data.scene, "
             "gsplat_tpu_torch.scripts.train, gsplat_tpu_torch.tools, "
+            "gsplat_tpu_torch.scripts.render, gsplat_tpu_torch.scripts.metrics, "
+            "gsplat_tpu_torch.scripts.full_eval, "
+            "gsplat_tpu_torch.scripts.train_segment, "
+            "gsplat_tpu_torch.utils.general, gsplat_tpu_torch.viz.lpips, "
+            "gsplat_tpu_torch.viz.video, gsplat_tpu_torch.viz.camera_trajectory, "
             "gsplat_tpu_torch.tools.probes, gsplat_tpu_torch.tools.timing, "
             "gsplat_tpu_torch.tools.workload, "
             "gsplat_tpu_torch.tools.bench_fwd_attrib, "

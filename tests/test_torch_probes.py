@@ -9,6 +9,7 @@ import sys
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 from jax.experimental import pallas as pl
 
@@ -257,3 +258,23 @@ def test_dtype_mix_and_synthetic_workload_match_jax_tools():
     for s, n in zip(w.starts.tolist(), w.counts.tolist()):
         assert w.gauss_id[s:s + n].tolist() == list(range(s, s + n))
     assert w.table.shape == (nch * 128, 11) and w.C == 5
+
+
+def test_bounds_take_the_largest_of_three_terms():
+    """``bound_ms`` is the largest of bytes over the HBM rate, operations
+    over the arithmetic rate and exponentials over the SFU rate, and names
+    it; P4's bound at the tool's shape is its 1,073,741,824 exponentials,
+    0.2568 ms, in both forms."""
+    assert wl.bound_ms(3.35e9, 0) == (pytest.approx(1.0), "bytes")
+    assert wl.bound_ms(1e9, 67e9) == (pytest.approx(1.0), "operations")
+    assert wl.bound_ms(1e9, 1e9, nexp=wl.SFU_RESULTS_PER_S * 2e-3) == (
+        pytest.approx(2.0), "exponentials")
+    assert wl.bound_ms(0, 133.8e9, wl.BF16_OPS_PER_S, nexp=1e6) == (
+        pytest.approx(1.0), "operations")
+    n = bench_vpu_dtype.SHAPE[0] * bench_vpu_dtype.SHAPE[1]
+    assert n * bench_vpu_dtype.N_PROGRAMS * bench_vpu_dtype.N_ITERS == \
+        1_073_741_824
+    for itemsize, bf16 in ((4, False), (2, True)):
+        ms, by = wl.dtype_bound(n, itemsize, bench_vpu_dtype.N_PROGRAMS,
+                                bench_vpu_dtype.N_ITERS, bf16)
+        assert by == "exponentials" and round(ms, 4) == 0.2568
