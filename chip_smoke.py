@@ -110,7 +110,30 @@ Phases (any failure exits non-zero; nothing is caught):
    seeded LPIPS weights named for this phase only (SSIM in [0, 1], PSNR
    and LPIPS finite, each view's PSNR recomputed from the PNGs within
    1e-6), LPIPS at 1080p on the card within 1e-5 relative of the CPU's;
-   then (d)'s model rendered and scored through the same two CLIs.
+   then (d)'s model rendered and scored through the same two CLIs;
+14. (i) the appearance embedding and the live-viewer socket: (i.1) ten
+   ``make_appearance_step`` steps in the JAX Trainer's numerics on phase
+   8's state (bench.py's camera as camera 2 of 4) with the counters zeroed
+   just before (K3, K1 and K2 in the packed quad form, and K4, once a
+   step; no overflow, finite state, falling loss, only row 2 of the
+   embedding moved), then that step and ``make_train_step`` alternated
+   from one state (ms/step, device busy, the appearance's extra busy);
+   (i.2) ``Trainer(use_appearance=True, gui_source_path=...)`` on (c)'s
+   cameras with exact cull, 10 iterations with a save and a checkpoint
+   (``appearance_embedding.npz`` beside the PLY,
+   ``appearance_chkpnt10.npz`` reloading to equal tensors and moments);
+   (i.3) during it, a loopback client on the port ``network_gui.init(
+   "127.0.0.1", 0)`` bound asks for bench.py's camera 31 times with
+   ``train = False`` and once with ``train = True, keep_alive = False``:
+   every frame bit-equal to the quantised ``renderer.render`` of the
+   model before the first iteration, K3 and K1 once per frame, training
+   on to its last iteration; median and p90 of the warmed frames' round
+   trip and of its parts clocked inside each exchange (receive, render,
+   frame_bytes, send; the rest a remainder), and frame_bytes' readback
+   and quantise apart; (i.4) ``scripts.train.main``
+   on (d)'s scene with ``--able_appearance_embedding`` and the socket
+   open on ``--port 0``, then resumed from its checkpoint (the appearance
+   checkpoint loaded: step counts 10, then 15).
 
 Each bound (``tools/workload.py::bound_ms``) is the largest of the bytes
 over the HBM rate, the operations over the fp32 (or bf16) rate and the
@@ -123,6 +146,7 @@ and
 script exits 2 and prints no result.
 """
 import atexit
+import contextlib
 import ctypes
 import json
 import math
@@ -542,8 +566,9 @@ def phase_cull_render(torch, card, model, cam, cap):
 
 
 def alternate_steps(torch, np, card, steps, order, state, batch, lrs):
-    """Train steps of each of ``steps`` from the same state, in ``order``
-    (each name twice, as a, b, b, a): ms/step (CUDA events per step),
+    """Train steps of each of ``steps`` (each returning its metrics last)
+    from the same state, in ``order`` (each name twice, as a, b, b, a):
+    ms/step (CUDA events per step),
     device busy ms/step (profiler) and the launches of one step, printed
     and returned per name."""
     from gsplat_tpu_torch import _kernels
@@ -558,13 +583,13 @@ def alternate_steps(torch, np, card, steps, order, state, batch, lrs):
             out = steps[name](*state, batch, lrs)
             b.record()
             torch.cuda.synchronize()
-            check(not bool(out[3]["overflow"]), f"step {name}: overflow")
+            check(not bool(out[-1]["overflow"]), f"step {name}: overflow")
             times[name].append(a.elapsed_time(b))
     res = {}
     for name in steps:
         torch.cuda.synchronize()
         _kernels.reset_launch_counts()
-        m = steps[name](*state, batch, lrs)[3]
+        m = steps[name](*state, batch, lrs)[-1]
         torch.cuda.synchronize()
         launches = dict(_kernels.launch_counts)
         med = float(np.median(times[name]))
@@ -1129,15 +1154,14 @@ def write_lpips_weights(np, path, seed=3):
     np.savez(path, **z)
 
 
-def run_cli(main, argv, torch=None, module=None, timed=()):
-    """``main(argv)`` with its standard output captured and echoed; returns
-    what it printed and {name: [seconds of each call]} of the functions of
-    ``module`` named in ``timed``, each call synchronised on the card."""
-    import contextlib
-    import io
-    buf = io.StringIO()
-    seconds = {name: [] for name in timed}
-    orig = {name: getattr(module, name) for name in timed}
+@contextlib.contextmanager
+def clocked_calls(torch, module, names):
+    """Each function of ``module`` named in ``names`` replaced, while the
+    block runs, by one that appends its seconds, synchronised on the card
+    before and after, to the yielded {name: [seconds of each call]}; a call
+    that raises is not recorded."""
+    seconds = {name: [] for name in names}
+    orig = {name: getattr(module, name) for name in names}
 
     def clocked(name):
         def call(*args, **kw):
@@ -1150,13 +1174,23 @@ def run_cli(main, argv, torch=None, module=None, timed=()):
         return call
 
     try:
-        for name in timed:
+        for name in names:
             setattr(module, name, clocked(name))
-        with contextlib.redirect_stdout(buf):
-            main(argv)
+        yield seconds
     finally:
         for name, fn in orig.items():
             setattr(module, name, fn)
+
+
+def run_cli(main, argv, torch=None, module=None, timed=()):
+    """``main(argv)`` with its standard output captured and echoed; returns
+    what it printed and {name: [seconds of each call]} of the functions of
+    ``module`` named in ``timed``, each call synchronised on the card."""
+    import io
+    buf = io.StringIO()
+    with clocked_calls(torch, module, timed) as seconds, \
+            contextlib.redirect_stdout(buf):
+        main(argv)
     sys.stdout.write(buf.getvalue())
     return buf.getvalue(), seconds
 
@@ -1306,6 +1340,383 @@ def phase_render_cli(torch, np, card, model, work, cli_model):
           f"(LPIPS '{LPIPS_NET}' on seeded weights: card {lp_card:.9g}, CPU "
           f"{lp_cpu:.9g}); phase (d)'s 128x96 model {json.dumps(cli_res)}; "
           f"setup {t_setup:.1f} s, phase {time.perf_counter() - t0:.1f} s")
+
+
+# (i) the appearance embedding and the live-viewer socket at 1080p: the
+# appearance step on phase 8's state in the JAX Trainer's numerics, the
+# Trainer with both on (c)'s cameras serving a loopback client, and the
+# command line with the socket open and the appearance resumed
+APP_CAMERAS = 4
+APP_UID = 2              # bench.py's camera as camera 2 of 4
+APP_TRAINER_ITERS = 10
+SOCKET_FRAMES = 31       # train = False; then one train = True, keep_alive
+SOCKET_TIMEOUT = 120.0   # = False: 32 frames served at the first poll, the
+                         # first cold and left out of the statistics
+
+
+def phase_appearance_step(torch, np, card, w):
+    """(i.1) ``make_appearance_step`` in the JAX Trainer's numerics on
+    phase 8's state: TRAIN_STEPS steps with the counters zeroed just before
+    (K3, K1 and K2 in the packed quad form, and K4, once a step; no
+    overflow, finite state, falling loss, only the camera's row of the
+    embedding moved), then that step and ``make_train_step`` alternated
+    from one state (default, appearance, appearance, default): ms/step,
+    device busy ms/step and the appearance's extra busy time.  Returns the
+    launch counts of the steps."""
+    from gsplat_tpu_torch import _kernels
+    from gsplat_tpu_torch.models import appearance as app_lib
+    from gsplat_tpu_torch.ops.rasterize import RasterizeConfig
+    from gsplat_tpu_torch.train import trainer
+    t0 = time.perf_counter()
+    sc = w.scene
+    model, cam, cap = sc["model"], sc["cam"], sc["cap"]
+    dev = model.device
+    ti = train_inputs(torch, cam, model, cap)
+    state, opt, lr_fn = ti["state"], ti["opt"], ti["lr_fn"]
+    batch = dict(ti["batch"], uid=torch.tensor(APP_UID, dtype=torch.int32,
+                                               device=dev))
+    cfg = RasterizeConfig(width=W, height=H, sh_degree=3, num_class=NUM_CLASS,
+                          max_instances=cap, **DEFAULTS)
+    bg = torch.zeros(3, device=dev)
+    app_step = trainer.make_appearance_step(cfg, opt, 3, "L1_loss", True, bg,
+                                            device=dev)
+    app = app_lib.AppearanceOptimizer(APP_CAMERAS, device=dev)
+
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    s, history = (*state, app.params, app.opt_state), []
+    for it in range(1, TRAIN_STEPS + 1):
+        *s, m = app_step(*s, batch, lr_fn(it))
+        history.append({k: float(v) for k, v in m.items()})
+    torch.cuda.synchronize()
+    launches = dict(_kernels.launch_counts)
+    check(all(launches[k] == TRAIN_STEPS for k in (
+        "expand", "composite_forward_packed_quad",
+        "composite_backward_packed_quad", "segment_sum"))
+          and launches["composite_forward"] == 0
+          and launches["composite_backward"] == 0,
+          f"appearance (i.1): the steps did not launch K3, K1 and K2 in the "
+          f"packed quad form and K4 once each ({launches})")
+    check(all(math.isfinite(h["loss"]) and not h["overflow"]
+              for h in history), "appearance (i.1): a step failed")
+    check(history[-1]["loss"] < history[0]["loss"],
+          f"appearance (i.1): loss did not fall ({history[0]['loss']} -> "
+          f"{history[-1]['loss']})")
+    for name, tree in (("params", s[0]), ("mu", s[1].mu), ("nu", s[1].nu),
+                       ("aux", s[2][1:]), ("appearance", s[3]),
+                       ("appearance mu", s[4].mu),
+                       ("appearance nu", s[4].nu)):
+        check(all(bool(torch.isfinite(x).all()) for x in tree),
+              f"appearance (i.1): non-finite {name}")
+    check(int(s[4].count) == TRAIN_STEPS, "appearance (i.1): step count")
+    moved = (s[3].emb != app.params.emb).any(dim=1).tolist()
+    check(moved == [i == APP_UID for i in range(APP_CAMERAS)],
+          f"appearance (i.1): embedding rows moved {moved}, expected only "
+          f"row {APP_UID}")
+    factors = [float(v) for v in app_lib.apply(s[3], batch["uid"],
+                                                  batch["viewmatrix"])]
+    print(f"appearance (i.1): {TRAIN_STEPS} steps, loss "
+          f"{history[0]['loss']:.6f} -> {history[-1]['loss']:.6f}, l1 "
+          f"{history[0]['l1']:.6f} -> {history[-1]['l1']:.6f}; factors "
+          f"{json.dumps(factors)}; launches {json.dumps(launches)}")
+
+    steps = {"default": trainer.make_train_step(
+        cfg, opt, 3, "L1_loss", True, bg, device=dev),
+        "appearance": lambda p, o, a, b, lrs: app_step(
+            p, o, a, app.params, app.opt_state, b, lrs)}
+    res = alternate_steps(torch, np, card, steps,
+                          ("default", "appearance", "appearance", "default"),
+                          state, batch, lr_fn(TRAIN_STEPS))
+    busy = {k: v["busy"] for k, v in res.items()}
+    extra = (None if None in busy.values()
+             else busy["appearance"] - busy["default"])
+    print(f"appearance (i.1) [{card}]: appearance step median "
+          f"{res['appearance']['ms']:.3f} ms/step against the default "
+          f"step's {res['default']['ms']:.3f}; device busy "
+          f"{json.dumps(busy)} ms/step, the appearance's extra busy "
+          f"{'not measured' if extra is None else f'{extra:.3f}'} ms/step; "
+          f"phase {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def sibr_message(np, cam, train, keep_alive):
+    """A SIBR viewer's camera message for ``cam``, framed: the view matrix
+    with columns 1 and 2 negated and the projection with column 1 negated,
+    as the viewer sends them (``network_gui.receive`` negates them back)."""
+    vm = np.array(cam.world_view_transform, np.float64)
+    vm[:, 1:3] *= -1
+    pm = np.array(cam.full_proj_transform, np.float64)
+    pm[:, 1] *= -1
+    payload = json.dumps({
+        "resolution_x": cam.image_width, "resolution_y": cam.image_height,
+        "train": train, "fov_y": cam.FoVy, "fov_x": cam.FoVx,
+        "z_near": 0.01, "z_far": 100.0, "shs_python": False,
+        "rot_scale_python": False, "keep_alive": keep_alive,
+        "scaling_modifier": 1.0, "view_matrix": vm.ravel().tolist(),
+        "view_projection_matrix": pm.ravel().tolist()}).encode("utf-8")
+    return len(payload).to_bytes(4, "little") + payload
+
+
+def socket_client(np, sock, cam, frames, errors):
+    """The loopback viewer: SOCKET_FRAMES messages with ``train = False``,
+    then one with ``train = True, keep_alive = False``; each reply (the
+    frame, then the source path) read whole and kept with its round-trip
+    ms.  Closes the socket whatever happens, so the server never waits on
+    it."""
+    n = cam.image_width * cam.image_height * 3
+
+    def exactly(k):
+        buf = bytearray()
+        while len(buf) < k:
+            chunk = sock.recv(min(k - len(buf), 1 << 22))
+            if not chunk:
+                raise ConnectionError("the server closed the connection")
+            buf += chunk
+        return bytes(buf)
+
+    try:
+        for i in range(SOCKET_FRAMES + 1):
+            last = i == SOCKET_FRAMES
+            t = time.perf_counter()
+            sock.sendall(sibr_message(np, cam, last, not last))
+            img = exactly(n)
+            path = exactly(int.from_bytes(exactly(4), "little"))
+            frames.append((img, path.decode("ascii"),
+                           (time.perf_counter() - t) * 1e3))
+    except Exception as e:  # noqa: BLE001  (reported by the phase)
+        errors.append(repr(e))
+    finally:
+        sock.close()
+
+
+def phase_appearance_trainer(torch, np, card, w, model, extent):
+    """(i.2, i.3) ``Trainer(use_appearance=True, gui_source_path=...)`` on
+    phase (c)'s cameras with exact cull and the default numerics,
+    APP_TRAINER_ITERS iterations with one save and one checkpoint, while
+    a loopback client on the port ``network_gui.init("127.0.0.1", 0)``
+    bound asks for bench.py's camera (``socket_client``): every frame
+    equal, byte for byte, to the quantised ``renderer.render`` of the
+    model before the first iteration at the same camera, ``bg`` and
+    ``max_instances``, K3 and K1 once per frame, training on to its last
+    iteration; ``appearance_embedding.npz`` beside the PLY and
+    ``appearance_chkpnt<it>.npz`` reloading equal.  Each exchange's
+    server parts (``receive``, ``renderer.render``, ``frame_bytes``,
+    ``send``) are clocked inside it, and ``frame_bytes``' readback and
+    quantise apart after.  Returns the launch counts of the run."""
+    import copy
+    import socket
+    import threading
+
+    from gsplat_tpu_torch import _kernels, renderer
+    from gsplat_tpu_torch.config import OptimizationParams
+    from gsplat_tpu_torch.models.appearance import AppearanceOptimizer
+    from gsplat_tpu_torch.scripts.render import quantize
+    from gsplat_tpu_torch.train.trainer import Trainer
+    from gsplat_tpu_torch.viz import network_gui
+    t0 = time.perf_counter()
+    dev = model.device
+    cam = w.scene["cam"]
+    tm = train_model(torch, model)
+    cams = [target_camera(torch, np, renderer, tm, T, f"view{i}", i)
+            for i, T in enumerate(TRAINER_POSES)]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    tm.params = perturbed(torch, tm.params, model.capacity, gen)
+    tm.training_setup()
+    before = copy.deepcopy(tm)
+    opt = OptimizationParams()
+    opt.lambda_depth = TRAIN_LAMBDA_DEPTH
+    opt.densify_from_iter = APP_TRAINER_ITERS      # no densification
+    t_setup = time.perf_counter() - t0
+
+    network_gui.init("127.0.0.1", 0)
+    port = network_gui.listener.getsockname()[1]
+    frames, errors, rows = [], [], []
+    with tempfile.TemporaryDirectory() as out_dir:
+        scene = MemoryScene(tm, cams[:4], cams[4:], extent, out_dir)
+        tr = Trainer(tm, scene, opt, depth_loss_choice="L1_loss",
+                     use_seg=True, cull="exact", max_instances=0,
+                     model_path=out_dir, use_appearance=True,
+                     gui_source_path=out_dir)
+
+        def record(it, metrics, trainer):
+            rows.append({"it": it, "loss": float(metrics["loss"]),
+                         "overflow": bool(metrics["overflow"]),
+                         "capacity": trainer.max_instances,
+                         "launches": dict(_kernels.launch_counts)})
+
+        torch.cuda.synchronize()
+        _kernels.reset_launch_counts()
+        t1 = time.perf_counter()
+        # the server's parts of each exchange, clocked where
+        # poll_and_render calls them
+        with clocked_calls(torch, network_gui, ("receive", "frame_bytes",
+                                                "send")) as served, \
+                clocked_calls(torch, renderer, ("render",)) as rendered, \
+                socket.create_connection(("127.0.0.1", port),
+                                         timeout=SOCKET_TIMEOUT) as sock:
+            client = threading.Thread(
+                target=socket_client, args=(np, sock, cam, frames, errors),
+                daemon=True)
+            client.start()
+            tr.train(APP_TRAINER_ITERS, log_every=1, callback=record,
+                     save_iterations={APP_TRAINER_ITERS},
+                     checkpoint_iterations={APP_TRAINER_ITERS})
+            client.join(SOCKET_TIMEOUT)
+        torch.cuda.synchronize()
+        t_train = time.perf_counter() - t1
+        launches = dict(_kernels.launch_counts)
+        check(not client.is_alive() and not errors,
+              f"socket (i.3): the client failed: {errors}")
+        check(network_gui.conn is None, "socket (i.3): the connection was "
+              "not dropped after the client closed")
+        network_gui.listener.close()
+        network_gui.listener = None
+        check([r["it"] for r in rows] == list(range(1, APP_TRAINER_ITERS
+                                                     + 1)),
+              "appearance (i.2): training did not go on to its last "
+              "iteration")
+        check(all(math.isfinite(r["loss"]) for r in rows),
+              "appearance (i.2): non-finite loss")
+        n_frames = SOCKET_FRAMES + 1
+        first = rows[0]["launches"]
+        check(first["composite_forward"] == n_frames
+              and first["expand"] - first["expand_extras"] == n_frames,
+              f"socket (i.3): {n_frames} frames did not launch K3 and K1 "
+              f"once each ({first})")
+        prev = first
+        for r in rows[1:]:
+            check(all(r["launches"][k] - prev[k] == 1 for k in CULL_KERNELS)
+                  and r["launches"]["composite_forward"] == n_frames,
+                  f"appearance (i.2): step {r['it']} did not launch K3x, "
+                  f"K3, K1, K2 and K4 once each ({r['launches']})")
+            prev = r["launches"]
+        want = quantize(renderer.render(
+            cam, before, bg_color=tr.bg, max_instances=rows[0]["capacity"],
+            device=dev)["render"].cpu().numpy()).tobytes()
+        check(len(frames) == n_frames, f"socket (i.3): {len(frames)} "
+              f"frames received, {n_frames} asked for")
+        for i, (img, path, _) in enumerate(frames):
+            check(img == want, f"socket (i.3): frame {i} differs from the "
+                  "quantised renderer.render of the model before training")
+            check(path == out_dir, f"socket (i.3): frame {i} path {path!r}")
+        served.update(rendered)
+        check(all(len(v) == n_frames for v in served.values()),
+              f"socket (i.3): clocked calls "
+              f"{ {k: len(v) for k, v in served.items()} }, {n_frames} "
+              "frames")
+
+        app = tr.appearance
+        emb = os.path.join(out_dir, "point_cloud",
+                           f"iteration_{APP_TRAINER_ITERS}",
+                           "appearance_embedding.npz")
+        back = AppearanceOptimizer(1, device=dev)
+        check(back.load(emb) and all(torch.equal(a, b) for a, b in zip(
+            back.params, app.params)), "appearance (i.2): "
+              "appearance_embedding.npz beside the PLY")
+        ck = os.path.join(out_dir, f"appearance_chkpnt{APP_TRAINER_ITERS}"
+                                   ".npz")
+        check(back.load(ck), "appearance (i.2): no appearance checkpoint")
+        for name, a, b in (("params", back.params, app.params),
+                           ("mu", back.opt_state.mu, app.opt_state.mu),
+                           ("nu", back.opt_state.nu, app.opt_state.nu)):
+            check(all(torch.equal(x, y) for x, y in zip(a, b)),
+                  f"appearance (i.2): checkpoint {name} differs")
+        check(int(back.opt_state.count) == int(app.opt_state.count)
+              == APP_TRAINER_ITERS, "appearance (i.2): checkpoint count")
+
+    # frame_bytes' two parts at the same camera, timed apart (host clock
+    # around synchronised work)
+    apart = {"readback": [], "quantise": []}
+    for _ in range(n_frames):
+        img = renderer.render(cam, before, bg_color=tr.bg,
+                              max_instances=rows[0]["capacity"],
+                              device=dev)["render"]
+        torch.cuda.synchronize()
+        b = time.perf_counter()
+        host = img.cpu().numpy()
+        c = time.perf_counter()
+        network_gui.frame_bytes(torch.from_numpy(host))
+        d = time.perf_counter()
+        apart["readback"].append((c - b) * 1e3)
+        apart["quantise"].append((d - c) * 1e3)
+
+    def warm(ms):
+        """Median and p90 of the warmed frames (the first left out)."""
+        return {"median": round(float(np.median(ms[1:])), 3),
+                "p90": round(float(np.percentile(ms[1:], 90)), 3)}
+
+    rt = [f[2] for f in frames]
+    parts = {k: [x * 1e3 for x in v] for k, v in served.items()}
+    parts["remainder"] = [t - parts["render"][i] - parts["frame_bytes"][i]
+                          - parts["send"][i] for i, t in enumerate(rt)]
+    print(f"socket (i.3) {W}x{H} [{card}]: {n_frames} frames bit-equal to "
+          f"renderer.render, {len(frames[0][0])} bytes each; round trip "
+          f"{json.dumps(warm(rt))} ms over the {n_frames - 1} warmed frames "
+          f"(the first, cold, {rt[0]:.3f}); inside each exchange, "
+          f"synchronised: "
+          f"{json.dumps({k: warm(v) for k, v in parts.items()})} ms "
+          f"(render: renderer.render; frame_bytes: readback and quantise; "
+          f"send: three sendall; receive: the wait for and parse of the "
+          f"client's next message; remainder: the round trip less render, "
+          f"frame_bytes and send, not measured apart: the message's "
+          f"transit and parse, the client's last reads, thread switches); "
+          f"frame_bytes' parts alone "
+          f"{json.dumps({k: warm(v) for k, v in apart.items()})} ms")
+    print(f"appearance trainer (i.2) {W}x{H} [{card}]: {APP_TRAINER_ITERS} "
+          f"iterations in {t_train:.1f} s with the socket frames, save and "
+          f"checkpoint; capacity {rows[0]['capacity']}; loss "
+          f"{rows[0]['loss']:.6f} -> {rows[-1]['loss']:.6f}; launches "
+          f"{json.dumps(launches)}; setup {t_setup:.1f} s, phase "
+          f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def phase_appearance_cli(torch, np, card, work, device="cuda"):
+    """(i.4) ``scripts.train.main`` on phase (d)'s scene with
+    ``--able_appearance_embedding``, the viewer socket open (no
+    ``--disable_gui_server``; ``--port 0``), then resumed from its
+    checkpoint: the appearance checkpoint is loaded and carried on."""
+    from gsplat_tpu_torch import _kernels
+    from gsplat_tpu_torch.models.appearance import AppearanceOptimizer
+    from gsplat_tpu_torch.scripts import train as train_cli
+    from gsplat_tpu_torch.viz import network_gui
+    t0 = time.perf_counter()
+    out = os.path.join(work, "cli_appearance")
+    base = ["-s", os.path.join(work, "cli_scene"), "-m", out,
+            "--data_device", device, "--able_appearance_embedding",
+            "--port", "0",
+            "--test_iterations", "99", "--densify_from_iter", "99"]
+    counts = []
+    for argv in (["--iterations_override", "10",
+                  "--checkpoint_iterations", "10"],
+                 ["--iterations_override", "15",
+                  "--checkpoint_iterations", "15", "--start_checkpoint",
+                  os.path.join(out, "chkpnt10.npz")]):
+        torch.cuda.synchronize()
+        _kernels.reset_launch_counts()
+        train_cli.main(base + argv)
+        torch.cuda.synchronize()
+        launches = dict(_kernels.launch_counts)
+        check(network_gui.listener is not None
+              and network_gui.listener.getsockname()[1] > 0,
+              "appearance cli (i.4): the viewer socket was not opened")
+        network_gui.listener.close()
+        network_gui.listener = None
+        app = AppearanceOptimizer(1, device=device)
+        it = argv[1]
+        check(app.load(os.path.join(out, f"appearance_chkpnt{it}.npz")),
+              f"appearance cli (i.4): no appearance_chkpnt{it}.npz")
+        counts.append(int(app.opt_state.count))
+        check(launches["composite_backward_packed_quad"] > 0
+              and launches["segment_sum"] > 0,
+              f"appearance cli (i.4): launches {launches}")
+    check(counts == [10, 15], f"appearance cli (i.4): appearance step "
+          f"counts {counts}, expected [10, 15] (the resume loads "
+          "appearance_chkpnt10.npz)")
+    print(f"appearance cli (i.4) [{card}]: 10 iterations, then resumed to "
+          f"15 from chkpnt10.npz with appearance_chkpnt10.npz; appearance "
+          f"step counts {counts}; phase {time.perf_counter() - t0:.1f} s")
 
 
 # (e) the kernel probes.  Every 17th tile of the asset (120 of 2,040,
@@ -2239,6 +2650,11 @@ def main():
 
     # ---- 13. (h) the render and evaluation command lines at 1080p ----------
     phase_render_cli(torch, np, card, model, work, cli_model)
+
+    # ---- 14. (i) the appearance embedding and the viewer socket at 1080p ---
+    phase_appearance_step(torch, np, card, w)
+    phase_appearance_trainer(torch, np, card, w, model, extent)
+    phase_appearance_cli(torch, np, card, work)
 
     # bounds: each input read once, each output written once
     k3_bound, k3_by, k3_bytes, k3_ops = wl.expand_bound(S, cap)

@@ -6,8 +6,9 @@ the rasterizer's own alpha test culls them.  Carried here: the parameter
 and bookkeeping layout, initialisation from a point cloud (KNN scales), the
 Adam state, capacity growth, PLY / npz loading, PLY export, the full
 checkpoints, and ``params_from_numpy`` / ``aux_from_numpy`` /
-``adam_state_from_numpy``, which take the JAX model's fields as numpy
-arrays so both packages start from one state.  The checkpoints use the JAX
+``adam_state_from_numpy`` / ``appearance_params_from_numpy``, which take
+the JAX model's fields as numpy arrays so both packages start from one
+state.  The checkpoints use the JAX
 package's npz keys, so a checkpoint written by either package restores in
 the other: a second way of carrying weights across.  Clone, split and prune
 live in ``models/densify.py``.
@@ -387,12 +388,22 @@ def aux_from_numpy(d: dict, device="cuda") -> GaussianAux:
            for k in GaussianAux._fields[1:]})
 
 
-def adam_state_from_numpy(count, mu: dict, nu: dict,
-                          device="cuda") -> adam.AdamState:
-    """The port's ``AdamState`` over ``GaussianParams`` from the JAX one's
-    ``count`` and the fields of its ``mu`` and ``nu`` as numpy arrays."""
+def appearance_params_from_numpy(d: dict, device="cuda"):
+    """The port's ``models.appearance.AppearanceParams`` from the JAX
+    ones' fields as numpy arrays (``{k: np.asarray(v) for k, v in
+    jax_app_params._asdict().items()}``, or an npz of them)."""
+    from gsplat_tpu_torch.models.appearance import AppearanceParams
+    return AppearanceParams(**{k: _tensor(d[k], device, np.float32)
+                               for k in AppearanceParams._fields})
+
+
+def adam_state_from_numpy(count, mu: dict, nu: dict, device="cuda",
+                          tree_type=GaussianParams) -> adam.AdamState:
+    """The port's ``AdamState`` over ``tree_type`` (``GaussianParams``, or
+    ``AppearanceParams``) from the JAX one's ``count`` and the fields of
+    its ``mu`` and ``nu`` as numpy arrays."""
     def tree(d):
-        return GaussianParams(**{k: _tensor(d[k], device, np.float32)
-                                 for k in GaussianParams._fields})
+        return tree_type(**{k: _tensor(d[k], device, np.float32)
+                            for k in tree_type._fields})
     return adam.AdamState(count=_tensor(count, device, np.int32),
                           mu=tree(mu), nu=tree(nu))

@@ -5,9 +5,7 @@ Trains, renders and scores the Mip-NeRF-360 / Tanks&Temples /
 DeepBlending suites at the reference's resolutions and iteration counts,
 through ``gsplat_tpu_torch.scripts.{train,render,metrics}``, each in its
 own process on the card.  The commands are the JAX driver's with the
-package swapped, and one flag more: training runs with
-``--disable_gui_server``, since the port's training CLI refuses to start
-without it until the viewer socket is ported (ROADMAP Queue 1 item 8).
+package swapped.
 """
 from __future__ import annotations
 
@@ -68,8 +66,7 @@ def main(argv=None):
                    "-m", out, "--eval", "--quiet",
                    "--test_iterations", "7000", str(args.iterations),
                    "--save_iterations", "7000", str(args.iterations),
-                   "--iterations_override", str(args.iterations),
-                   "--disable_gui_server"]
+                   "--iterations_override", str(args.iterations)]
             if extra:
                 cmd += extra.split()
             run(cmd)

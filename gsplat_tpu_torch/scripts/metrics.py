@@ -37,12 +37,13 @@ def read_images(renders_dir, gt_dir):
 
 
 def try_lpips(device="cuda"):
-    """The LPIPS module, or None (with the reason printed) when no local
-    weights are named: the reference's disabled-LPIPS behavior."""
-    from gsplat_tpu_torch.viz.lpips import LPIPS
+    """The LPIPS module, or None (with the reason printed) when it cannot be
+    built, as in the JAX CLI: no local weights named, or a file made for
+    another net (the reference's disabled-LPIPS behavior)."""
     try:
+        from gsplat_tpu_torch.viz.lpips import LPIPS
         return LPIPS(device=device)
-    except FileNotFoundError as e:
+    except Exception as e:  # noqa: BLE001
         print(f"[metrics] LPIPS unavailable ({e}); reporting SSIM/PSNR only")
         return None
 

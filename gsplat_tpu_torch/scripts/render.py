@@ -23,11 +23,7 @@ from argparse import ArgumentParser
 
 import numpy as np
 
-
-def quantize(img: np.ndarray) -> np.ndarray:
-    """[3, H, W] float -> [H, W, 3] uint8 as the JAX CLI writes it: clipped
-    to [0, 1], times 255, truncated."""
-    return (np.clip(img, 0, 1).transpose(1, 2, 0) * 255).astype(np.uint8)
+from gsplat_tpu_torch.utils.general import quantize
 
 
 def render_set(model_path, name, iteration, views, gaussians, background,

@@ -9,12 +9,15 @@ Trains on the card (``--data_device cuda``, the default) or, with
 writes what the JAX CLI writes: ``cfg_args``, ``input.ply``,
 ``cameras.json``, ``train_log.jsonl``, ``point_cloud/iteration_<n>/
 point_cloud.ply``, ``eval_log.jsonl`` at the test iterations and
-``chkpnt<n>.npz`` at the checkpoint iterations.
+``chkpnt<n>.npz`` at the checkpoint iterations; with
+``--able_appearance_embedding`` also ``appearance_embedding.npz`` beside
+each PLY and ``appearance_chkpnt<n>.npz`` beside each checkpoint, which
+``--start_checkpoint`` resumes.  As the JAX CLI does, it opens the
+live-viewer socket on ``--ip``/``--port`` unless ``--disable_gui_server``
+is given, and trains on without it when the port cannot be bound.
 
-Not ported yet, and refused before anything is written: the live-viewer
-socket (pass ``--disable_gui_server``; ROADMAP Queue 1 item 8),
-``--multihost`` and multi-device training (item 7) and the appearance
-embedding (item 6).
+Not ported yet, and refused before anything is written: ``--multihost``
+and multi-device training (ROADMAP Queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -82,10 +85,6 @@ def main(argv=None):
         raise NotImplementedError(
             "--multihost: multi-host training is not ported yet; see "
             "ROADMAP.md, Queue 1 item 7")
-    if not args.disable_gui_server:
-        raise NotImplementedError(
-            "the live-viewer socket server is not ported yet; pass "
-            "--disable_gui_server (see ROADMAP.md, Queue 1 item 8)")
     args.save_iterations.append(args.iterations)
 
     dataset = lp.extract(args)
@@ -143,12 +142,22 @@ def main(argv=None):
         first_iter = gaussians.restore_checkpoint(args.start_checkpoint)
         print(f"Resumed from {args.start_checkpoint} at iteration {first_iter}")
 
+    gui_source = None
+    if not args.disable_gui_server:
+        try:
+            from gsplat_tpu_torch.viz import network_gui
+            network_gui.init(args.ip, args.port)
+            gui_source = dataset.source_path
+        except OSError as e:
+            print(f"[gui] socket server disabled: {e}")
+
     bg = np.ones(3) if dataset.white_background else np.zeros(3)
     trainer = Trainer(
         gaussians, scene, opt, bg=bg,
         depth_loss_choice=args.depth_loss_choice if dataset.using_depth else None,
         use_seg=dataset.using_seg, backend=args.backend,
         max_instances=args.max_instances, model_path=args.model_path,
+        gui_source_path=gui_source,
         grad_precision=args.grad_precision,
         feat_precision=args.feat_precision,
         cull=args.cull,
@@ -161,6 +170,14 @@ def main(argv=None):
         debug_from=args.debug_from,
         vs_prune=args.vs_prune,
         white_background=dataset.white_background)
+    if dataset.able_appearance_embedding and args.start_checkpoint:
+        # resume the appearance state saved beside the gaussian checkpoint
+        app_ckpt = os.path.join(
+            os.path.dirname(args.start_checkpoint) or ".",
+            "appearance_chkpnt" + os.path.basename(args.start_checkpoint)
+            .removeprefix("chkpnt"))
+        if trainer.appearance.load(app_ckpt):
+            print(f"Resumed appearance embedding from {app_ckpt}")
 
     metrics_log = open(os.path.join(args.model_path, "train_log.jsonl"), "a")
 

@@ -7,8 +7,7 @@ logits trained against ground-truth segment maps via alpha-composited
 cross-entropy (train_segment.py:125-138); the reference's default test/save
 iterations are shifted by +3000 (train_segment.py:370-371).
 
-Usage: python -m gsplat_tpu_torch.scripts.train_segment -s <data> \
-    --disable_gui_server ...
+Usage: python -m gsplat_tpu_torch.scripts.train_segment -s <data> ...
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """Training step and loop (PyTorch port of ``gsplat_tpu/train/trainer.py``:
 ``camera_batch``, ``make_loss_fn``, ``gate_on_overflow``,
-``make_train_step``, ``Trainer``).
+``make_appearance_step``, ``make_train_step``, ``Trainer``).
 
 Behavioral spec: reference train.py:33-216 / train_segment.py (loss mix,
 densification schedule, opacity resets, checkpointing).  One step is one
@@ -10,8 +10,11 @@ K3, and under ``cull="exact"`` its extras form, then K1), losses, one
 and the overflow gate.  The step returns new state tensors and leaves the
 ones it was given as they were; it never reads a value back to the host, so
 the overflow gate is a ``torch.where`` per state tensor, as in the JAX
-package.  ``Trainer`` is the host loop around it (single device).  The
-appearance step and the pose optimizer come with later slices.
+package.  ``make_appearance_step`` is the same step with the per-camera
+appearance embedding (``models/appearance.py``) trained beside the
+gaussians.  ``Trainer`` is the host loop around them (single device), with
+the live-viewer socket polled at the top of each iteration
+(``viz/network_gui.py``).
 """
 from __future__ import annotations
 
@@ -76,7 +79,10 @@ def make_loss_fn(cfg: RasterizeConfig, opt, sh_degree: int,
                  convert_shs_python: bool = False,
                  compute_cov3d_python: bool = False, device="cuda"):
     """Loss on raw params for one camera.  Mirrors train.py:110-141 +
-    train_segment.py:125-138.  ``convert_shs_python`` /
+    train_segment.py:125-138 (+ the appearance factors, train.py:100-104,
+    when the loss is given ``app_params``; the JAX function also takes a
+    ``use_appearance`` flag, which ``app_params`` alone decides here).
+    ``convert_shs_python`` /
     ``compute_cov3d_python`` route SH->RGB and the 3D covariance through the
     module-level functions as precomputed rasterizer inputs (reference pipe
     flags, gaussian_renderer/__init__.py:341-359); both are differentiable,
@@ -85,7 +91,7 @@ def make_loss_fn(cfg: RasterizeConfig, opt, sh_degree: int,
     bg = torch.as_tensor(bg, dtype=torch.float32, device=dev)
 
     def loss_fn(params: GaussianParams, m2d_off, batch, generator=None,
-                draws=None):
+                draws=None, app_params=None):
         colors_precomp = None
         if convert_shs_python:
             from gsplat_tpu_torch.core import sh as sh_lib
@@ -118,6 +124,11 @@ def make_loss_fn(cfg: RasterizeConfig, opt, sh_degree: int,
             device=dev,
         )
         image = out["render"]
+        if app_params is not None:
+            from gsplat_tpu_torch.models import appearance as app_lib
+            factors = app_lib.apply(app_params, batch["uid"],
+                                    batch["viewmatrix"])
+            image = image * factors.reshape(3, 1, 1)
         gt = batch["gt_image"]
         l1 = L.l1_loss(image, gt)
         loss = ((1.0 - opt.lambda_dssim) * l1
@@ -164,6 +175,95 @@ def gate_on_overflow(pred, new_tree, old_tree):
                          old_tree)
 
 
+def _make_step(cfg: RasterizeConfig, opt, sh_degree: int,
+               depth_loss_choice: Optional[str], use_seg: bool, bg,
+               track_stats: bool, app_lr: float, convert_shs_python: bool,
+               compute_cov3d_python: bool, device):
+    """The step body ``make_train_step`` and ``make_appearance_step``
+    share: ``step(params, opt_state, aux, app, batch, lrs, generator,
+    draws)``, where ``app`` is ``()`` or ``(app_params, app_opt_state)``.
+    One ``torch.autograd.grad`` over the gaussian parameters, the
+    screen-space offsets and the appearance parameters; the appearance's
+    own Adam update at ``app_lr`` with its own step count; the overflow
+    gate over every state tree."""
+    dev = resolve_device(device)
+    loss_fn = make_loss_fn(cfg, opt, sh_degree, depth_loss_choice, use_seg,
+                           bg, convert_shs_python=convert_shs_python,
+                           compute_cov3d_python=compute_cov3d_python,
+                           device=dev)
+    scale = torch.tensor([0.5 * cfg.width, 0.5 * cfg.height],
+                         dtype=torch.float32, device=dev)
+
+    def step(params, opt_state, aux, app, batch, lrs, generator, draws):
+        check_on(dev, xyz=params.xyz, emb=app[0].emb if app else None)
+        old = (params, opt_state, aux, *app)
+        P = params.xyz.shape[0]
+        leaves = GaussianParams(
+            *[p.detach().requires_grad_(True) for p in params])
+        app_leaves = (type(app[0])(
+            *[p.detach().requires_grad_(True) for p in app[0]])
+            if app else None)
+        m2d_off = torch.zeros((P, 2), dtype=torch.float32, device=dev,
+                              requires_grad=True)
+        loss, auxout = loss_fn(leaves, m2d_off, batch, generator, draws,
+                               app_params=app_leaves)
+        wrt = [*leaves, m2d_off, *(app_leaves or ())]
+        grads = [torch.zeros_like(x) if g is None else g
+                 for g, x in zip(torch.autograd.grad(
+                     loss, wrt, allow_unused=True), wrt)]
+        n = len(leaves)
+        gparams, g_m2d = GaussianParams(*grads[:n]), grads[n]
+
+        # densification stats: NDC-scaled mean2d grad norm
+        # (backward.cu:627-628; add_densification_stats gaussian_model.py:523)
+        if track_stats:
+            aux = add_densification_stats(aux, g_m2d * scale[None, :],
+                                          auxout["radii"])
+
+        lrs_tree = GaussianParams(**{k: lrs[k]
+                                     for k in GaussianParams._fields})
+        new = (*adam.update(gparams, opt_state, params, lrs_tree), aux)
+        if app:
+            app_params, app_opt_state = app
+            new += adam.update(type(app_params)(*grads[n + 1:]),
+                               app_opt_state, app_params,
+                               tuple(app_lr for _ in app_params))
+        metrics = {
+            "loss": loss.detach(), "l1": auxout["l1"].detach(),
+            "depth_loss": auxout["depth_loss"].detach(),
+            "seg_loss": auxout["seg_loss"].detach(),
+            "overflow": auxout["overflow"],
+            "num_rendered": auxout["num_rendered"],
+            "num_padded": auxout["num_padded"],
+            "n_visible": torch.sum(auxout["visibility"]),
+        }
+        return (*gate_on_overflow(auxout["overflow"], new, old), metrics)
+
+    return step
+
+
+def make_appearance_step(cfg: RasterizeConfig, opt, sh_degree: int,
+                         depth_loss_choice: Optional[str], use_seg: bool, bg,
+                         app_lr: float = 1e-4,
+                         convert_shs_python: bool = False,
+                         compute_cov3d_python: bool = False, device="cuda"):
+    """The train step that also optimizes the appearance embedding
+    (reference train.py:100-104,188-190).  Returns ``step(params,
+    opt_state, aux, app_params, app_opt_state, batch, lrs, generator=None,
+    draws=None) -> (params, opt_state, aux, app_params, app_opt_state,
+    metrics)`` (``_make_step``)."""
+    body = _make_step(cfg, opt, sh_degree, depth_loss_choice, use_seg, bg,
+                      True, app_lr, convert_shs_python, compute_cov3d_python,
+                      device)
+
+    def step(params, opt_state, aux, app_params, app_opt_state, batch, lrs,
+             generator=None, draws=None):
+        return body(params, opt_state, aux, (app_params, app_opt_state),
+                    batch, lrs, generator, draws)
+
+    return step
+
+
 def make_train_step(cfg: RasterizeConfig, opt, sh_degree: int,
                     depth_loss_choice: Optional[str], use_seg: bool, bg,
                     track_stats: bool = True,
@@ -174,50 +274,12 @@ def make_train_step(cfg: RasterizeConfig, opt, sh_degree: int,
     of per-group learning rates (``schedules.make_lr_fn``); ``generator``
     feeds the random depth losses, and ``draws`` hands them fixed numbers
     instead (``losses.depth_loss_dispatch``)."""
-    dev = resolve_device(device)
-    loss_fn = make_loss_fn(cfg, opt, sh_degree, depth_loss_choice, use_seg,
-                           bg, convert_shs_python=convert_shs_python,
-                           compute_cov3d_python=compute_cov3d_python,
-                           device=dev)
-    scale = torch.tensor([0.5 * cfg.width, 0.5 * cfg.height],
-                         dtype=torch.float32, device=dev)
+    body = _make_step(cfg, opt, sh_degree, depth_loss_choice, use_seg, bg,
+                      track_stats, 0.0, convert_shs_python,
+                      compute_cov3d_python, device)
 
     def step(params, opt_state, aux, batch, lrs, generator=None, draws=None):
-        check_on(dev, xyz=params.xyz)
-        old = (params, opt_state, aux)
-        P = params.xyz.shape[0]
-        leaves = GaussianParams(
-            *[p.detach().requires_grad_(True) for p in params])
-        m2d_off = torch.zeros((P, 2), dtype=torch.float32, device=dev,
-                              requires_grad=True)
-        loss, auxout = loss_fn(leaves, m2d_off, batch, generator, draws)
-        grads = torch.autograd.grad(loss, [*leaves, m2d_off],
-                                    allow_unused=True)
-        grads = [torch.zeros_like(x) if g is None else g
-                 for g, x in zip(grads, [*leaves, m2d_off])]
-        gparams, g_m2d = GaussianParams(*grads[:-1]), grads[-1]
-
-        # densification stats: NDC-scaled mean2d grad norm
-        # (backward.cu:627-628; add_densification_stats gaussian_model.py:523)
-        if track_stats:
-            aux = add_densification_stats(aux, g_m2d * scale[None, :],
-                                          auxout["radii"])
-
-        lrs_tree = GaussianParams(**{k: lrs[k]
-                                     for k in GaussianParams._fields})
-        params, opt_state = adam.update(gparams, opt_state, params, lrs_tree)
-        params, opt_state, aux = gate_on_overflow(
-            auxout["overflow"], (params, opt_state, aux), old)
-        metrics = {
-            "loss": loss.detach(), "l1": auxout["l1"].detach(),
-            "depth_loss": auxout["depth_loss"].detach(),
-            "seg_loss": auxout["seg_loss"].detach(),
-            "overflow": auxout["overflow"],
-            "num_rendered": auxout["num_rendered"],
-            "num_padded": auxout["num_padded"],
-            "n_visible": torch.sum(auxout["visibility"]),
-        }
-        return params, opt_state, aux, metrics
+        return body(params, opt_state, aux, (), batch, lrs, generator, draws)
 
     return step
 
@@ -240,10 +302,12 @@ class Trainer:
       seeded from ``seed``; it feeds the random depth losses and the split
       samples of densification.  Its streams differ from JAX's.
     - ``profile_dir`` records a ``torch.profiler`` trace (Chrome format).
+    - The appearance embedding's initial weights come from a
+      ``torch.Generator`` seeded 1337 (``models/appearance.py``), not from
+      JAX's key.
     - Options the port does not have yet raise ``NotImplementedError`` with
       their ROADMAP item: ``data_parallel`` other than 1 and
-      ``tile_parallel`` above 1 (Queue 1 item 7), ``use_appearance``
-      (item 6) and ``gui_source_path`` (item 8).
+      ``tile_parallel`` above 1 (Queue 1 item 7).
 
     As in the JAX ``Trainer``, ``grad_precision`` and ``feat_precision``
     default to ``"bf16"`` (per-instance gradient rows rounded to bf16
@@ -264,14 +328,6 @@ class Trainer:
             raise NotImplementedError(
                 "data_parallel / tile_parallel: multi-GPU training is not "
                 "ported yet; see ROADMAP.md, Queue 1 item 7")
-        if use_appearance:
-            raise NotImplementedError(
-                "use_appearance: the appearance embedding is not ported "
-                "yet; see ROADMAP.md, Queue 1 item 6")
-        if gui_source_path is not None:
-            raise NotImplementedError(
-                "gui_source_path: the live-viewer socket is not ported yet; "
-                "see ROADMAP.md, Queue 1 item 8")
         for name, value in (("grad_precision", grad_precision),
                             ("feat_precision", feat_precision)):
             if value not in ("f32", "bf16"):
@@ -307,6 +363,14 @@ class Trainer:
         self.last_densify = None  # dict written after each densify call
         cams = scene.getTrainCameras()
         W, H = cams[0].image_width, cams[0].image_height
+        self.appearance = None
+        if use_appearance:
+            # per-camera learned RGB factors optimized with the gaussians
+            # (reference train.py:42-44,100-104,188-190)
+            from gsplat_tpu_torch.models.appearance import AppearanceOptimizer
+            n_uid = max((getattr(c, "uid", 0) for c in cams), default=0) + 1
+            self.appearance = AppearanceOptimizer(max(n_uid, len(cams)),
+                                                  device=self.device)
         P = model.capacity
         self._auto_capacity = max_instances <= 0
         if max_instances <= 0:
@@ -327,6 +391,7 @@ class Trainer:
             grad_precision=grad_precision, cull=cull,
             feat_precision=feat_precision, mxu_power=True)
         self.ema_loss = 0.0
+        self.gui_source_path = gui_source_path  # enables SIBR socket polling
         self._pending_checks = deque()   # (it, npad, nr, overflow, max_i)
         self._check_interval = 1         # adaptive (see train loop)
         self._resize_iter = -10**9       # shrink cooldown anchor
@@ -342,6 +407,14 @@ class Trainer:
         self._batches = OrderedDict()
 
     def _build_step(self, sh_degree, max_instances):
+        if self.appearance is not None:
+            return make_appearance_step(
+                self._cfg(sh_degree, max_instances), self.opt, sh_degree,
+                self.depth_loss_choice, self.use_seg, self.bg,
+                app_lr=self.appearance.lr,
+                convert_shs_python=self.convert_shs_python,
+                compute_cov3d_python=self.compute_cov3d_python,
+                device=self.device)
         return make_train_step(
             self._cfg(sh_degree, max_instances), self.opt, sh_degree,
             self.depth_loss_choice, self.use_seg, self.bg,
@@ -431,6 +504,9 @@ class Trainer:
                     os.path.join(profile_dir, "trace.json"))
                 prof = None
                 print(f"[it {it}] profiler trace written to {profile_dir}")
+            # live-viewer poll (reference train.py:71-84)
+            if self.gui_source_path is not None:
+                self._poll_gui()
             if it % 1000 == 0:
                 m.oneup_sh_degree()
             if not stack:
@@ -440,9 +516,16 @@ class Trainer:
 
             lrs = self.lr_fn(it)
             step = self._step_fn(m.active_sh_degree)
-            m.params, m.opt_state, m.aux, metrics = step(
-                m.params, m.opt_state, m.aux, batch, lrs,
-                generator=self.generator)
+            if self.appearance is not None:
+                app = self.appearance
+                (m.params, m.opt_state, m.aux, app.params, app.opt_state,
+                 metrics) = step(m.params, m.opt_state, m.aux, app.params,
+                                 app.opt_state, batch, lrs,
+                                 generator=self.generator)
+            else:
+                m.params, m.opt_state, m.aux, metrics = step(
+                    m.params, m.opt_state, m.aux, batch, lrs,
+                    generator=self.generator)
             if 0 <= self.debug_from <= it:
                 # reference pipe.debug from --debug_from: a per-step finite
                 # check (one device sync), and the step's inputs dumped on
@@ -532,15 +615,41 @@ class Trainer:
             if it in save_iterations:
                 print(f"\n[ITER {it}] Saving Gaussians")
                 self.scene.save(it)
+                if self.appearance is not None and self.model_path:
+                    # beside the PLY, like the reference's
+                    # appearance_embedding.ckpt (train.py:164-167)
+                    self.appearance.save(os.path.join(
+                        self.model_path, "point_cloud", f"iteration_{it}",
+                        "appearance_embedding.npz"))
             if it in checkpoint_iterations and self.model_path:
                 print(f"\n[ITER {it}] Saving Checkpoint")
                 m.save_checkpoint(
                     os.path.join(self.model_path, f"chkpnt{it}.npz"), it)
+                if self.appearance is not None:
+                    self.appearance.save(
+                        os.path.join(self.model_path,
+                                     f"appearance_chkpnt{it}.npz"),
+                        with_opt=True)
             if it in test_iterations:
                 self.report_test(it)
         if prof is not None:
             prof.stop()
         return time.time() - t_start
+
+    def _poll_gui(self):
+        """Serve the viewer's camera messages, if a client is connected,
+        with ``renderer.render`` at the ``Trainer``'s background, backend
+        and instance capacity."""
+        from gsplat_tpu_torch.renderer import render as render_fn
+        from gsplat_tpu_torch.viz import network_gui
+        if network_gui.listener is None:
+            return
+        network_gui.poll_and_render(
+            self.model, self.gui_source_path,
+            lambda cam, g, sm: render_fn(
+                cam, g, bg_color=self.bg, scaling_modifier=sm,
+                backend=self.backend, max_instances=self.max_instances,
+                device=self.device))
 
     def _get_batch(self, cams, i):
         """Per-camera device batch through the bounded LRU cache (cap

@@ -2,7 +2,8 @@
 
 Behavioral spec: reference utils/general_utils.py:120-141 (``safe_state``:
 timestamped stdout and global seeding) and utils/system_utils.py:16-28
-(``mkdir_p``, ``searchForMaxIteration``).
+(``mkdir_p``, ``searchForMaxIteration``), and ``quantize``, the uint8 image
+the render CLI and the viewer socket both write.
 """
 from __future__ import annotations
 
@@ -41,6 +42,13 @@ def safe_state(silent: bool = False, seed: int = 0) -> torch.Generator:
     random.seed(seed)
     np.random.seed(seed)
     return torch.manual_seed(seed)
+
+
+def quantize(img: np.ndarray) -> np.ndarray:
+    """[3, H, W] float -> [H, W, 3] uint8 as the JAX CLIs write their PNGs
+    and the viewer socket sends its frames: clipped to [0, 1], times 255,
+    truncated."""
+    return (np.clip(img, 0, 1).transpose(1, 2, 0) * 255).astype(np.uint8)
 
 
 def mkdir_p(folder_path: str):

@@ -36,20 +36,25 @@ def save_frames(frames: List[np.ndarray], out_dir: str) -> List[str]:
 
 
 def _write_cv2(paths: List[str], out_path: str, fps: int) -> bool:
+    """OpenCV's mp4 writer; False when it wrote nothing.  Any cv2 error
+    (no cv2, a codec it lacks, an unreadable frame) is printed and taken as
+    False, so that ``save_video`` falls through to ffmpeg, as the JAX
+    package does."""
     try:
         import cv2
-    except ImportError:
+        first = cv2.imread(paths[0])
+        h, w = first.shape[:2]
+        vw = cv2.VideoWriter(out_path, cv2.VideoWriter_fourcc(*"mp4v"), fps,
+                             (w, h))
+        if not vw.isOpened():
+            return False
+        for p in paths:
+            vw.write(cv2.imread(p))
+        vw.release()
+        return os.path.exists(out_path) and os.path.getsize(out_path) > 0
+    except Exception as e:  # noqa: BLE001
+        print(f"[video] cv2 writer unavailable ({e}); trying ffmpeg")
         return False
-    first = cv2.imread(paths[0])
-    h, w = first.shape[:2]
-    vw = cv2.VideoWriter(out_path, cv2.VideoWriter_fourcc(*"mp4v"), fps,
-                         (w, h))
-    if not vw.isOpened():
-        return False
-    for p in paths:
-        vw.write(cv2.imread(p))
-    vw.release()
-    return os.path.exists(out_path) and os.path.getsize(out_path) > 0
 
 
 def save_video(frames: List[np.ndarray], out_path: str, fps: int = 30) -> str:

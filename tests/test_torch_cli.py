@@ -63,17 +63,12 @@ def test_parser_matches_jax():
 def test_unported_options_raise(scenes, tmp_path):
     _, ts = scenes
     m = ts.gaussians
-    for kw, item in ((dict(data_parallel=2), "item 7"),
-                     (dict(tile_parallel=2), "item 7"),
-                     (dict(use_appearance=True), "item 6"),
-                     (dict(gui_source_path="x"), "item 8")):
-        with pytest.raises(NotImplementedError, match=item):
+    for kw in (dict(data_parallel=2), dict(tile_parallel=2)):
+        with pytest.raises(NotImplementedError, match="item 7"):
             TTrainer(m, ts, port_opt(), **kw)
     base = ["-s", "x", "-m", str(tmp_path / "o"), "--data_device", "cpu"]
-    with pytest.raises(NotImplementedError, match="item 8"):
-        ttrain.main(base)
     with pytest.raises(NotImplementedError, match="item 7"):
-        ttrain.main(base + ["--disable_gui_server", "--multihost"])
+        ttrain.main(base + ["--multihost"])
     assert not (tmp_path / "o").exists()     # refused before writing
 
 

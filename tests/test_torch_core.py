@@ -145,6 +145,8 @@ def test_import_is_jax_free():
             "gsplat_tpu_torch.scripts.train_segment, "
             "gsplat_tpu_torch.utils.general, gsplat_tpu_torch.viz.lpips, "
             "gsplat_tpu_torch.viz.video, gsplat_tpu_torch.viz.camera_trajectory, "
+            "gsplat_tpu_torch.viz.network_gui, "
+            "gsplat_tpu_torch.models.appearance, gsplat_tpu_torch.models.pose, "
             "gsplat_tpu_torch.tools.probes, gsplat_tpu_torch.tools.timing, "
             "gsplat_tpu_torch.tools.workload, "
             "gsplat_tpu_torch.tools.bench_fwd_attrib, "

@@ -49,7 +49,14 @@ def test_lpips_matches_jax(net, tmp_path):
 
 def test_lpips_needs_weights(monkeypatch, tmp_path):
     """No weights named: ``FileNotFoundError``, and the metrics CLI goes on
-    without LPIPS; a net other than the file's: ``ValueError``."""
+    without LPIPS; a net other than the file's: ``ValueError``; a file made
+    for another net without its tag (read as vgg's): the metrics CLI, as
+    the JAX one, prints why and writes SSIM and PSNR alone."""
+    import json
+
+    from PIL import Image
+
+    from gsplat_tpu_torch.scripts import metrics
     from gsplat_tpu_torch.scripts.metrics import try_lpips
 
     monkeypatch.delenv("GSPLAT_LPIPS_WEIGHTS", raising=False)
@@ -63,3 +70,20 @@ def test_lpips_needs_weights(monkeypatch, tmp_path):
     assert try_lpips("cpu").net_type == "alex"
     with pytest.raises(ValueError):
         LPIPS(net_type="vgg", device="cpu")
+
+    untagged = {k: v for k, v in convert(sd, lin_sd, net="alex").items()
+                if k != "net_type"}
+    path = str(tmp_path / "untagged.npz")
+    np.savez(path, **untagged)
+    monkeypatch.setenv("GSPLAT_LPIPS_WEIGHTS", path)
+    assert try_lpips("cpu") is None
+    model = tmp_path / "model"
+    rng = np.random.default_rng(6)
+    for sub in ("renders", "gt"):
+        d = model / "test" / "ours_1" / sub
+        d.mkdir(parents=True)
+        Image.fromarray(rng.integers(0, 256, (24, 24, 3), np.uint8)).save(
+            d / "00000.png")
+    metrics.evaluate([str(model)], device="cpu")
+    with open(model / "results.json") as f:
+        assert set(json.load(f)["ours_1"]) == {"SSIM", "PSNR"}

@@ -88,12 +88,13 @@ def rendered(tmp_path_factory):
     return d1, d2, scene
 
 
-def test_render_cli_matches_jax(rendered, capsys):
+def test_render_cli_matches_jax(rendered, capsys, monkeypatch):
     """(a) The same files; gt PNGs bit-equal; every render, depth and path
     PNG within one level of 255 of JAX's (truncation turns a float
     difference of about 1e-6 at a level boundary into one level).  Then
     the depth-pane set video from both sets of PNGs: its frames within one
-    level, and the encoder named."""
+    level, and the encoder named; with a cv2 writer that raises, the frame
+    directory."""
     d1, d2, _ = rendered
     files = _files(d2)
     assert files == _files(d1)
@@ -130,6 +131,21 @@ def test_render_cli_matches_jax(rendered, capsys):
         b = _png(os.path.join(d2, fdir, f))
         assert a.shape == (SIZE, 2 * SIZE, 3)
         assert np.abs(a - b).max() <= 1, f
+
+    # a cv2 writer that raises: the port falls back as the JAX package does
+    # (ffmpeg, then the frame directory; no ffmpeg here)
+    cv2 = pytest.importorskip("cv2")
+
+    def broken_writer(*a, **k):
+        raise RuntimeError("no mp4v encoder")
+
+    monkeypatch.setattr(cv2, "VideoWriter", broken_writer)
+    monkeypatch.setattr(tvideo.shutil, "which", lambda name: None)
+    got = tvideo.save_vidio(d2, "train", 1)
+    said = capsys.readouterr().out
+    assert got == os.path.join(d2, fdir)
+    assert "cv2 writer unavailable (no mp4v encoder)" in said
+    assert "[video] encoder none" in said
 
 
 def test_trajectory_and_general_match_jax(rendered, tmp_path, monkeypatch):
@@ -249,9 +265,7 @@ def test_metrics_match_jax(rendered):
 def test_full_eval_train_segment_and_refusals(rendered, monkeypatch):
     """(d) ``full_eval``'s commands, with ``run`` recording them, equal
     JAX's with the package swapped under every combination of the
-    ``--skip_*`` flags (training also passes ``--disable_gui_server``: the
-    port's training CLI refuses to start without it, ROADMAP Queue 1 item
-    8); ``train_segment`` hands the training CLI JAX's arguments; the
+    ``--skip_*`` flags; ``train_segment`` hands the training CLI JAX's arguments; the
     render CLI refuses ``--tile_parallel 2`` (item 7) and another
     backend, and renders with the pipe's debug flags, which reach
     ``renderer.render``, within one level of JAX's default render."""
@@ -269,13 +283,7 @@ def test_full_eval_train_segment_and_refusals(rendered, monkeypatch):
             mod.main(roots + [f for fl in flags for f in fl])
         swapped = [[a.replace("gsplat_tpu.", "gsplat_tpu_torch.")
                     for a in c] for c in cmds["jax"]]
-        port = []
-        for c in cmds["port"]:
-            if "gsplat_tpu_torch.scripts.train" in c:
-                c = list(c)
-                c.remove("--disable_gui_server")
-            port.append(c)
-        assert port == swapped, flags
+        assert cmds["port"] == swapped, flags
         assert len(cmds["port"]) == (
             (0 if "--skip_training" in sum(flags, ()) else 13)
             + (0 if "--skip_rendering" in sum(flags, ()) else 26)
