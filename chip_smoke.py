@@ -133,7 +133,25 @@ Phases (any failure exits non-zero; nothing is caught):
    and quantise apart; (i.4) ``scripts.train.main``
    on (d)'s scene with ``--able_appearance_embedding`` and the socket
    open on ``--port 0``, then resumed from its checkpoint (the appearance
-   checkpoint loaded: step counts 10, then 15).
+   checkpoint loaded: step counts 10, then 15);
+15. (j) multi-GPU training and rendering (``gsplat_tpu_torch/parallel``)
+   on the one card: (j.1) the asset at bench.py's camera made at
+   1920x1152 (36 tile rows; fovy from bench.py's formula, so the focal
+   length is the 1080p camera's) rendered in D = 2 and D = 4 row slices
+   one after another through ``tile_parallel.render_slice``, each slice's
+   K3 and K1 counted and timed, the slices concatenated bit-equal to the
+   full render; (j.2) ``make_parallel_train_step`` at world size 1 over
+   NCCL on phase 8's inputs, bit-equal to ``make_train_step`` from the
+   same state, the two alternated for ms/step and device busy; (j.3) two
+   ranks of this script (``--rank r 2 port dir``, started after the
+   build and held at their stdin until this phase) sharing ``cuda:0``
+   over gloo, one data-parallel step (camera r on rank r) and one 2-slice
+   tile-sharded step at 1920x1152 in the 524,288-slot model, K3, K1, K2
+   and K4 counted in each rank, the state bit-equal across the ranks and
+   the gradients (a cold Adam step's first moments) and densification
+   statistics within rtol 3e-3 and 1e-3 of each field's largest of the
+   single-process oracles; (j.4) ``scripts.train.main`` with
+   ``--multihost`` at world size 1 on (d)'s scene, writing (d)'s files.
 
 Each bound (``tools/workload.py::bound_ms``) is the largest of the bytes
 over the HBM rate, the operations over the fp32 (or bf16) rate and the
@@ -2343,6 +2361,421 @@ def k2_occupancy(comp):
             for C in cs}
 
 
+# (j) multi-GPU training and rendering (gsplat_tpu_torch/parallel) on the
+# one card: bench.py's camera made at 1920x1152 (36 tile rows, so D = 2
+# and D = 4 split it; fovy from bench.py's formula, so the focal length is
+# the 1080p camera's), the data-parallel step at world size 1 over NCCL,
+# two gloo ranks sharing the card, the training CLI's --multihost.
+PAR_H = 1152
+PAR_SLICES = (2, 4)
+PAR_RANKS = 2
+PAR_TIMEOUT = 600
+
+
+def par_camera(np, pose, uid):
+    """bench.py's camera at ``pose`` and W x PAR_H."""
+    from gsplat_tpu_torch.core.cameras import Camera
+    fovx = math.radians(62.0)
+    fovy = 2 * math.atan(math.tan(fovx / 2) * PAR_H / W)
+    return Camera(colmap_id=uid, R=np.eye(3), T=np.array(pose), FoVx=fovx,
+                  FoVy=fovy, image=np.zeros((3, PAR_H, W), np.float32),
+                  image_name=f"par{uid}", uid=uid)
+
+
+def par_inputs(torch, np, model):
+    """What (j.3) starts from, the same in each rank and in this process:
+    the asset in TRAIN_CAPACITY slots with parameters perturbed by noise
+    from a generator seeded 7 (cold Adam moments), the first PAR_RANKS of
+    TRAINER_POSES at W x PAR_H with targets rendered from the unperturbed
+    asset, the f32 config at the capacity the renderer measures for camera
+    0, the optimization params and the learning rates."""
+    from gsplat_tpu_torch import renderer
+    from gsplat_tpu_torch.config import OptimizationParams
+    from gsplat_tpu_torch.ops.rasterize import RasterizeConfig
+    from gsplat_tpu_torch.train import schedules, trainer
+    dev = model.device
+    tm = train_model(torch, model)
+    cams = [par_camera(np, TRAINER_POSES[i], i) for i in range(PAR_RANKS)]
+    cap = renderer._auto_capacity(cams[0], tm, W, PAR_H, 1.0)
+    batches = []
+    for c in cams:
+        target = renderer.render(c, tm, max_instances=cap, device=dev)
+        check(not bool(target["overflow"]), "(j) target render overflowed")
+        b = trainer.camera_batch(
+            c, gt_depth=target["depth_raw"][None],
+            gt_seg=torch.argmax(target["segment"], dim=0), device=dev)
+        b["gt_image"] = target["render"]
+        batches.append(b)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    state = (perturbed(torch, tm.params, model.capacity, gen), tm.opt_state,
+             tm.aux)
+    opt = OptimizationParams()
+    opt.lambda_depth = TRAIN_LAMBDA_DEPTH
+    cfg = RasterizeConfig(width=W, height=PAR_H, sh_degree=3,
+                          num_class=NUM_CLASS, max_instances=cap)
+    return dict(batches=batches, state=state, opt=opt, cfg=cfg,
+                lrs=schedules.make_lr_fn(opt, 1.0)(1))
+
+
+def phase_par_slices(torch, np, card, model):
+    """(j.1) The asset at W x PAR_H rendered in D row slices one after
+    another through ``tile_parallel.render_slice`` (each rank's function)
+    and concatenated, for each D of PAR_SLICES: bit-equal to the full
+    render at that camera, the slices' radii's maximum equal to the full
+    radii; K3 and K1 once per slice, and each slice's ms."""
+    from gsplat_tpu_torch import _kernels, renderer
+    from gsplat_tpu_torch.core import transforms as T
+    from gsplat_tpu_torch.ops.rasterize import RasterizeConfig, rasterize
+    from gsplat_tpu_torch.parallel.tile_parallel import (render_slice,
+                                                         slice_camera)
+    t0 = time.perf_counter()
+    dev = model.device
+    cam = par_camera(np, TRAINER_POSES[0], 0)
+    cap = renderer._auto_capacity(cam, model, W, PAR_H, 1.0)
+    cfg = RasterizeConfig(width=W, height=PAR_H, sh_degree=3,
+                          num_class=NUM_CLASS, max_instances=cap)
+    p = model.params
+    args = (p.xyz, T.scaling_activation(p.scaling), p.rotation,
+            T.opacity_activation(p.opacity[:, 0]), model.get_features)
+    segs = T.segment_activation(p.segment)
+    camd = slice_camera(cam, 1, device=dev)
+    bg = torch.tensor([0.15, 0.3, 0.1], device=dev)
+    full = rasterize(cfg, *args, **camd, bg=bg, segments=segs, device=dev)
+    check(not bool(full["overflow"]), "(j.1) full render overflowed")
+    full_ms = event_ms(lambda: rasterize(cfg, *args, **camd, bg=bg,
+                                         segments=segs, device=dev), 10)
+    for D in PAR_SLICES:
+        outs, launches, ms = [], [], []
+        for r in range(D):
+            torch.cuda.synchronize()
+            _kernels.reset_launch_counts()
+            outs.append(render_slice(cfg, D, r, *args, camd, bg,
+                                     segments=segs, device=dev))
+            torch.cuda.synchronize()
+            launches.append({k: v for k, v in _kernels.launch_counts.items()
+                             if v})
+            ms.append(event_ms(lambda: render_slice(
+                cfg, D, r, *args, camd, bg, segments=segs, device=dev), 10))
+        check(all(n == {"expand": 1, "composite_forward": 1}
+                  for n in launches),
+              f"(j.1) D={D}: a slice did not launch K3 and K1 once each "
+              f"({launches})")
+        check(not any(bool(o["overflow"]) for o in outs),
+              f"(j.1) D={D}: a slice overflowed")
+        for k in ("render", "depth", "alpha", "segment", "T_final"):
+            got = torch.cat([o[k] for o in outs], dim=-2)
+            check(torch.equal(got, full[k]),
+                  f"(j.1) D={D}: the slices' {k} differs from the full "
+                  f"render's (max |diff| {float((got - full[k]).abs().max())})")
+        radii = torch.stack([o["radii"] for o in outs]).max(dim=0).values
+        check(torch.equal(radii, full["radii"]),
+              f"(j.1) D={D}: the slices' radii differ from the full render's")
+        print(f"par (j.1) [{card}] D={D} at {W}x{PAR_H}: slices bit-equal to "
+              f"the full render (render, depth, alpha, segment, T_final; "
+              f"radii the slices' maximum); per slice K3 and K1 once "
+              f"{json.dumps(launches)}, instances "
+              f"{[int(o['num_rendered']) for o in outs]}, ms "
+              f"{', '.join(f'{t:.4f}' for t in ms)} (full render "
+              f"{full_ms:.4f} ms, {int(full['num_rendered'])} instances)")
+    print(f"par (j.1): capacity {cap}; phase {time.perf_counter() - t0:.1f} s")
+
+
+def phase_par_nccl(torch, np, card, cam, model, cap):
+    """(j.2) ``make_parallel_train_step`` at world size 1 over NCCL, at
+    1920x1080 in the TRAIN_CAPACITY model (phase 8's inputs): bit-equal to
+    ``make_train_step`` from the same state (every state tensor and
+    metric), K3, K1, K2 and K4 once per step; then the two alternated
+    (plain, data-parallel, data-parallel, plain) for ms/step and device
+    busy per step."""
+    import torch.distributed as dist
+
+    from gsplat_tpu_torch import _kernels
+    from gsplat_tpu_torch.ops.rasterize import RasterizeConfig
+    from gsplat_tpu_torch.parallel import data_parallel as dp
+    from gsplat_tpu_torch.parallel.multihost import free_port, init_multihost
+    from gsplat_tpu_torch.train import trainer
+    t0 = time.perf_counter()
+    dev = model.device
+    _, world = init_multihost(f"127.0.0.1:{free_port()}", 1, 0,
+                              device="cuda")
+    check(dist.get_backend() == "nccl" and world == 1,
+          f"(j.2) group: {dist.get_backend()}, world {world}")
+    try:
+        ti = train_inputs(torch, cam, model, cap)
+        batch, state, opt = ti["batch"], ti["state"], ti["opt"]
+        lrs = ti["lr_fn"](1)
+        cfg = RasterizeConfig(width=W, height=H, sh_degree=3,
+                              num_class=NUM_CLASS, max_instances=cap)
+        bg = torch.zeros(3, device=dev)
+        plain = trainer.make_train_step(cfg, opt, 3, "L1_loss", True, bg,
+                                        device=dev)
+        pstep = dp.make_parallel_train_step(dp.make_data_mesh(1, dev), cfg,
+                                            opt, 3, "L1_loss", True, bg,
+                                            device=dev)
+
+        def parallel(params, opt_state, aux, b, lrs_):
+            return pstep(params, opt_state, aux,
+                         dp.stack_camera_batches([b]), lrs_)
+
+        want = plain(*state, batch, lrs)
+        torch.cuda.synchronize()
+        _kernels.reset_launch_counts()
+        got = parallel(*state, batch, lrs)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in _kernels.launch_counts.items() if v}
+        check(all(launches.get(k) == 1 for k in (
+            "expand", "composite_forward", "composite_backward",
+            "segment_sum")), f"(j.2) launches {launches}")
+        diff = [k for k, a, b in zip(
+            ("params", "opt", "aux"), got[:3], want[:3])
+            if not all(torch.equal(x, y) for x, y in zip(
+                flat_tensors(a), flat_tensors(b)))]
+        diff += [k for k in want[3]
+                 if not torch.equal(got[3][k].to(want[3][k].dtype),
+                                    want[3][k])]
+        check(not diff, f"(j.2) the data-parallel step at world size 1 "
+              f"differs from make_train_step in {diff}")
+        res = alternate_steps(torch, np, card,
+                              {"plain": plain, "data-parallel": parallel},
+                              ("plain", "data-parallel", "data-parallel",
+                               "plain"), state, batch, lrs)
+    finally:
+        dist.destroy_process_group()
+    print(f"par (j.2) [{card}]: data-parallel step at world size 1 over "
+          f"NCCL bit-equal to make_train_step (state and metrics), launches "
+          f"{json.dumps(launches)}; busy per step data-parallel "
+          f"{res['data-parallel']['busy']} ms against plain "
+          f"{res['plain']['busy']}; phase {time.perf_counter() - t0:.1f} s")
+
+
+def flat_tensors(tree):
+    """The tensors of nested tuples, in order."""
+    if isinstance(tree, tuple):
+        return [t for x in tree for t in flat_tensors(x)]
+    return [tree]
+
+
+def start_par_ranks(port, work):
+    """PAR_RANKS copies of this script with ``--rank r PAR_RANKS port
+    work``, started once the kernels are built: each reaches the card and
+    waits for a line on its stdin (``phase_par_ranks``)."""
+    ranks = []
+    for r in range(PAR_RANKS):
+        with open(os.path.join(work, f"rank{r}.log"), "w") as log:
+            child = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--rank", str(r),
+                 str(PAR_RANKS), str(port), work],
+                stdin=subprocess.PIPE, stdout=log, stderr=subprocess.STDOUT,
+                text=True)
+        atexit.register(lambda c=child: c.poll() is None and c.kill())
+        ranks.append(child)
+    return ranks
+
+
+def rank_main(rank, world, port, work):
+    """One rank of (j.3), a process of its own on the one card (``cuda:0``
+    for every rank) in a gloo group: the data-parallel step on camera
+    ``rank`` over a ``data`` mesh, then the tile-sharded step on camera 0
+    over a ``tile`` mesh (row slice ``rank``), each with the launch counts
+    zeroed just before; writes its states and counts to
+    ``work/rank<rank>.pt``."""
+    import numpy as np
+    import torch
+    torch.zeros(1, device="cuda")            # reach the card, then wait
+    if sys.stdin.readline() != "go\n":
+        return 1                              # the parent ended first
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from gsplat_tpu_torch import _kernels
+    from gsplat_tpu_torch.models.gaussians import GaussianModel
+    from gsplat_tpu_torch.parallel import data_parallel as dp
+    from gsplat_tpu_torch.parallel import tile_parallel as tp
+    from gsplat_tpu_torch.parallel.multihost import init_multihost
+    import torch.distributed as dist
+    init_multihost(f"127.0.0.1:{port}", world, rank, device="cuda",
+                   backend="gloo")
+    dev = torch.device("cuda")
+    model = GaussianModel(3, num_class=NUM_CLASS, capacity=1, device=dev)
+    model.load_npz(ASSET)
+    seg = np.random.default_rng(0).standard_normal(
+        (model.capacity, NUM_CLASS))
+    model.params = model.params._replace(
+        segment=torch.from_numpy(seg.astype(np.float32)).to(dev))
+    pi = par_inputs(torch, np, model)
+    bg = torch.zeros(3, device=dev)
+    out = {}
+    dstep = dp.make_parallel_train_step(
+        dp.make_data_mesh(world, dev), pi["cfg"], pi["opt"], 3, "L1_loss",
+        True, bg, device=dev)
+    tstep, _ = tp.make_tile_sharded_train_step(
+        tp.make_tile_mesh(world, dev), pi["cfg"], pi["opt"], 3, "L1_loss",
+        True, bg, device=dev)
+    for name, run in (
+            ("dp", lambda: dstep(*pi["state"], dp.stack_camera_batches(
+                [pi["batches"][rank]]), pi["lrs"])),
+            ("tile", lambda: tstep(*pi["state"], pi["batches"][0],
+                                   pi["lrs"]))):
+        torch.cuda.synchronize()
+        _kernels.reset_launch_counts()
+        t = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        out[name] = dict(
+            state=[x.cpu() for x in flat_tensors(tuple(res[:3]))],
+            metrics={k: v.cpu() for k, v in res[3].items()},
+            launches={k: v for k, v in _kernels.launch_counts.items() if v},
+            s=time.perf_counter() - t)
+    torch.save(out, os.path.join(work, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+    print(f"rank {rank}: ok")
+    return 0
+
+
+def par_oracles(torch, pi):
+    """The single-process oracles of (j.3): the mean of the two cameras'
+    gradients of ``make_loss_fn`` with their densification statistics and
+    Adam (the data-parallel step's semantics), and ``make_train_step`` on
+    camera 0 (the tile-sharded step's)."""
+    from gsplat_tpu_torch.models import adam
+    from gsplat_tpu_torch.models.densify import add_densification_stats
+    from gsplat_tpu_torch.train import trainer
+    params, opt_state, aux = pi["state"]
+    cfg, opt, lrs = pi["cfg"], pi["opt"], pi["lrs"]
+    dev = params.xyz.device
+    bg = torch.zeros(3, device=dev)
+    loss_fn = trainer.make_loss_fn(cfg, opt, 3, "L1_loss", True, bg,
+                                   device=dev)
+    scale = torch.tensor([0.5 * W, 0.5 * PAR_H], device=dev)
+    gsum = None
+    for b in pi["batches"]:
+        leaves = type(params)(*[x.detach().requires_grad_(True)
+                                for x in params])
+        m2d = torch.zeros((params.xyz.shape[0], 2), device=dev,
+                          requires_grad=True)
+        loss, auxout = loss_fn(leaves, m2d, b)
+        g = torch.autograd.grad(loss, [*leaves, m2d])
+        aux = add_densification_stats(aux, g[-1] * scale, auxout["radii"])
+        gsum = g[:-1] if gsum is None else [a + x for a, x in zip(gsum, g)]
+    lrs_tree = type(params)(**{k: lrs[k] for k in params._fields})
+    mean = (*adam.update(type(params)(*[x / len(pi["batches"])
+                                        for x in gsum]),
+                         opt_state, params, lrs_tree), aux)
+    step = trainer.make_train_step(cfg, opt, 3, "L1_loss", True, bg,
+                                   device=dev)
+    single = step(*pi["state"], pi["batches"][0], lrs)[:3]
+    return {"dp": flat_tensors(tuple(mean)),
+            "tile": flat_tensors(tuple(single))}
+
+
+def phase_par_ranks(torch, np, card, model, ranks, work):
+    """(j.3) PAR_RANKS ranks sharing the card over gloo, each on
+    ``cuda:0``: one data-parallel step (camera r on rank r) and one
+    2-slice tile-sharded step (camera 0) at 1920x1152, K3, K1, K2 and K4 in
+    every rank; the state bit-equal across the ranks and the gradients (the
+    first moments of a cold Adam step, 0.1 g) and densification statistics
+    within rtol 3e-3 and 1e-3 of each field's largest of the
+    single-process oracles (phase (b)'s gradient tolerances, scaled to the
+    field)."""
+    t0 = time.perf_counter()
+    for child in ranks:
+        child.stdin.write("go\n")
+        child.stdin.flush()
+    # the oracles while the ranks run
+    pi = par_inputs(torch, np, model)
+    oracle = par_oracles(torch, pi)
+    names = [f"params.{k}" for k in pi["state"][0]._fields] + ["opt.count"] + [
+        f"opt.{m}.{k}" for m in ("mu", "nu")
+        for k in pi["state"][0]._fields] + [
+        f"aux.{k}" for k in pi["state"][2]._fields]
+    for r, child in enumerate(ranks):
+        child.stdin.close()
+        child.wait(timeout=PAR_TIMEOUT)
+        with open(os.path.join(work, f"rank{r}.log")) as f:
+            out = f.read()
+        sys.stdout.write(out[-4000:])
+        check(child.returncode == 0 and f"rank {r}: ok" in out,
+              f"(j.3) rank {r} failed (exit {child.returncode})")
+    got = [torch.load(os.path.join(work, f"rank{r}.pt"))
+           for r in range(PAR_RANKS)]
+    for step in ("dp", "tile"):
+        for r in range(1, PAR_RANKS):
+            same = [n for n, a, b in zip(names, got[r][step]["state"],
+                                         got[0][step]["state"])
+                    if not torch.equal(a, b)]
+            check(not same, f"(j.3) {step}: rank {r}'s state differs from "
+                  f"rank 0's in {same}")
+        for r in range(PAR_RANKS):
+            n = got[r][step]["launches"]
+            check(all(n.get(k, 0) >= 1 for k in (
+                "expand", "composite_forward", "composite_backward",
+                "segment_sum")), f"(j.3) {step} rank {r}: launches {n}")
+        errs = {}
+        for n, a, b in zip(names, got[0][step]["state"], oracle[step]):
+            if not (n.startswith("opt.mu.") or n in (
+                    "aux.xyz_gradient_accum", "aux.denom",
+                    "aux.max_radii2d")):
+                continue
+            b = b.cpu()
+            d = (a - b).abs()
+            big = float(b.abs().max())
+            errs[n] = float(d.max()) / max(big, 1e-30)
+            check(bool((d <= 3e-3 * b.abs() + 1e-3 * big).all()),
+                  f"(j.3) {step}: {n} beyond rtol 3e-3, 1e-3 of its largest "
+                  f"({errs[n]:.3g} of {big:.3g})")
+        m = got[0][step]["metrics"]
+        check(not bool(m["overflow"]) and math.isfinite(float(m["loss"])),
+              f"(j.3) {step}: overflow or non-finite loss")
+        print(f"par (j.3) [{card}] {step} over {PAR_RANKS} gloo ranks on "
+              f"cuda:0 at {W}x{PAR_H}: state bit-equal across the ranks, "
+              f"loss {float(m['loss']):.6f}; against the oracle, largest "
+              f"|diff| over each field's largest "
+              f"{json.dumps({k: float(f'{v:.3g}') for k, v in errs.items()})};"
+              f" launches per rank "
+              f"{json.dumps([g[step]['launches'] for g in got])}, step s per "
+              f"rank {[round(g[step]['s'], 3) for g in got]}")
+    print(f"par (j.3): phase {time.perf_counter() - t0:.1f} s")
+
+
+def phase_par_cli(torch, np, card, work, cli_files):
+    """(j.4) ``scripts.train.main`` with ``--multihost`` at world size 1
+    (NCCL over ``tcp://127.0.0.1``) on phase (d)'s scene and arguments: the
+    files phase (d) wrote, K3x launched every iteration, the group ended."""
+    import torch.distributed as dist
+
+    from gsplat_tpu_torch import _kernels
+    from gsplat_tpu_torch.parallel.multihost import free_port
+    from gsplat_tpu_torch.scripts import train as train_cli
+    t0 = time.perf_counter()
+    iters = 30
+    out = os.path.join(work, "cli_multihost")
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    train_cli.main([
+        "-s", os.path.join(work, "cli_scene"), "-m", out, "--cull", "exact",
+        "--disable_gui_server", "--iterations_override", str(iters),
+        "--test_iterations", str(iters), "--densify_from_iter", "10",
+        "--densification_interval", "10",
+        "--densify_grad_threshold", "2e-5", "--eval", "--multihost",
+        "--coordinator_address", f"127.0.0.1:{free_port()}",
+        "--num_processes", "1", "--process_id", "0"])
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in _kernels.launch_counts.items() if v}
+    check(not dist.is_initialized(), "(j.4) the CLI left its group up")
+    files = tree_files(out)
+    check(files == cli_files, f"(j.4) files {files} differ from phase (d)'s "
+          f"{cli_files}")
+    check(launches.get("expand_extras", 0) >= iters,
+          f"(j.4) launches {launches}")
+    print(f"par (j.4) [{card}]: scripts.train --multihost at world size 1, "
+          f"{iters} iterations: phase (d)'s {len(files)} files, launches "
+          f"{json.dumps(launches)}; phase {time.perf_counter() - t0:.1f} s")
+
+
+def tree_files(root):
+    return sorted(os.path.relpath(os.path.join(d, f), root)
+                  for d, _, fs in os.walk(root) for f in fs)
+
+
 def main():
     import numpy as np
     import torch
@@ -2397,6 +2830,10 @@ def main():
               f"{k[0]}: {r} registers, {sp} bytes spilled"
               for k, (r, sp) in sorted(k3_regs.items())))
     tile_children = {shape: start_tile_child(*shape) for shape in TILE_SHAPES}
+    par_work = tempfile.mkdtemp(prefix="chip_smoke_par_")
+    atexit.register(shutil.rmtree, par_work, True)
+    from gsplat_tpu_torch.parallel.multihost import free_port
+    par_ranks = start_par_ranks(free_port(), par_work)
     wmap = {f"{x}x{y}": comp.warp_map_errors(x, y) for x, y in WARP_MAP_SHAPES}
     check(all(v == {"outside": 0, "misowned": 0} for v in wmap.values()),
           "the warp map K1 and K2 share disagrees with the cull's boxes: "
@@ -2595,6 +3032,7 @@ def main():
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     atexit.register(shutil.rmtree, work, True)
     _, cli_model = phase_cli(torch, np, card, work)
+    cli_files = tree_files(cli_model)
 
     # per-stage times on the main path's own inputs
     tile_k, gid_k = bin_lib.expand(*k3_args)
@@ -2655,6 +3093,14 @@ def main():
     phase_appearance_step(torch, np, card, w)
     phase_appearance_trainer(torch, np, card, w, model, extent)
     phase_appearance_cli(torch, np, card, work)
+
+    # ---- 15. (j) multi-GPU training and rendering on the one card ---------
+    t0 = time.perf_counter()
+    phase_par_slices(torch, np, card, model)
+    phase_par_nccl(torch, np, card, cam, model, cap)
+    phase_par_ranks(torch, np, card, model, par_ranks, par_work)
+    phase_par_cli(torch, np, card, work, cli_files)
+    print(f"par (j): phase {time.perf_counter() - t0:.1f} s")
 
     # bounds: each input read once, each output written once
     k3_bound, k3_by, k3_bytes, k3_ops = wl.expand_bound(S, cap)
@@ -2720,4 +3166,6 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--tile"] and len(sys.argv) == 3:
         sys.exit(tile_main(*map(int, sys.argv[2].split("x"))))
+    if sys.argv[1:2] == ["--rank"] and len(sys.argv) == 6:
+        sys.exit(rank_main(*map(int, sys.argv[2:5]), sys.argv[5]))
     sys.exit(main())

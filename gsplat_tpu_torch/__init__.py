@@ -11,8 +11,8 @@ This package imports neither ``jax`` nor anything of ``gsplat_tpu``.
 Ported so far (the serving path, ``renderer.render``; the training step,
 ``train.trainer.make_train_step``; the training command line,
 ``scripts/train.py`` over ``train.trainer.Trainer``, with the appearance
-embedding and the live-viewer socket; and the render and evaluation
-command lines):
+embedding and the live-viewer socket; the render and evaluation command
+lines; and training and rendering over several devices):
 
 - ``core``    : cameras (numpy), quaternion/covariance math, SH evaluation
 - ``data``    : PLY reading and writing, COLMAP parsers, the COLMAP /
@@ -27,6 +27,10 @@ command lines):
                 the O(P*H*W) oracle
 - ``train``   : losses, learning-rate schedules, the train step and its
                 appearance form, ``Trainer``
+- ``parallel``: one process per device over ``torch.distributed``: the
+                group start and camera sampler (``multihost``), the
+                data-parallel, tile-sharded and 2-D mesh steps and the
+                tile-sharded render
 - ``config``  : the argparse parameter groups
 - ``scripts`` : ``train``, ``train_segment``, ``render``, ``metrics``,
                 ``full_eval``

@@ -112,15 +112,16 @@ class OptimizationParams(ParamGroup):
 
 class PerformanceParams(ParamGroup):
     """Sizing/backend knobs of the JAX package (no reference analogue).
-    Options the port does not have yet are accepted here and refused by the
-    ``Trainer`` with their ROADMAP item."""
+    A ``backend`` other than ``auto``, which the port does not have yet, is
+    accepted here and refused by the ``Trainer``."""
 
     def __init__(self, parser):
         self.capacity = 0            # gaussian capacity (0 = auto from init size)
         self.max_instances = 0       # tile-instance capacity (0 = auto)
         self.backend = "auto"        # the port has one: kernels K1/K2
-        self.data_parallel = 1       # cameras per step (multi-GPU: not ported)
-        self.tile_parallel = 1       # tile-row slices (multi-GPU: not ported)
+        self.data_parallel = 1       # cameras per step = ranks (-1: all)
+        self.tile_parallel = 1       # tile-row slices per camera; with
+                                     # data_parallel an (M, N) mesh
         self.profile_dir = ""        # torch.profiler trace output dir
         self.grad_precision = "bf16"  # bf16 | f32 per-instance grad rows
         self.feat_precision = "bf16"  # bf16 | f32 attr-table feature cols

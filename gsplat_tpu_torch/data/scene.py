@@ -220,10 +220,12 @@ class Scene:
     def __init__(self, args, gaussians, load_iteration: Optional[int] = None,
                  shuffle: bool = True, resolution_scales=(1.0,),
                  sub_scene: Optional[List[str]] = None, low_memory: bool = False,
-                 lazy_images: bool = False):
+                 lazy_images: bool = False, write_inputs: bool = True):
         # lazy_images: build LazyCameras (pixels decoded per access) so host
         # RAM stays bounded on large datasets; low_memory keeps the
-        # reference's pose-only MiniCam semantics (render/visualize only)
+        # reference's pose-only MiniCam semantics (render/visualize only);
+        # write_inputs=False leaves input.ply and cameras.json to another
+        # process (the ranks of a multi-device run but rank 0)
         self.model_path = args.model_path
         self.loaded_iter = None
         self.gaussians = gaussians
@@ -259,7 +261,7 @@ class Scene:
             raise ValueError(f"Could not recognize scene type for {src}")
         self.scene_info = scene_info
 
-        if not self.loaded_iter:
+        if not self.loaded_iter and write_inputs:
             os.makedirs(self.model_path, exist_ok=True)
             if scene_info.ply_path and os.path.exists(scene_info.ply_path):
                 shutil.copyfile(scene_info.ply_path,

@@ -12,13 +12,17 @@ it (every kernel's plain version).  Writes what the JAX CLI writes:
 ``path_renders/`` (or ``path.mp4`` with ``--video``) for an interpolated
 or replayed camera path, and a set video with ``--set_video``.
 
-Not ported yet, and refused: ``--tile_parallel`` above 1 (ROADMAP Queue 1
-item 7); a ``--backend`` other than ``auto`` raises in ``rasterize``
-(item 9).
+``--tile_parallel N`` renders each train and test view split by tile rows
+over N devices, one process each (``parallel/tile_parallel.py``, bit-equal
+to the single-device render): started alone the command starts N local
+ranks, under ``torchrun`` it joins the launched group, and rank 0 writes
+every file.  Not ported yet, and refused: a ``--backend`` other than
+``auto`` raises in ``rasterize`` (ROADMAP Queue 1 item 9).
 """
 from __future__ import annotations
 
 import os
+import sys
 from argparse import ArgumentParser
 
 import numpy as np
@@ -77,16 +81,47 @@ def render_path_frames(views_matrices, template_cam, gaussians, background,
 
 def make_tile_renderer(n: int, scene, gaussians, background, backend,
                        sh_degree: int):
-    """The tile-row-sharded view renderer over n devices: not ported
-    yet."""
-    raise NotImplementedError(
-        f"--tile_parallel {n}: the tile-row-sharded renderer is not ported "
-        "yet; see ROADMAP.md, Queue 1 item 7")
+    """The view renderer with each image's tile rows split over ``n`` ranks
+    of the process group (``parallel/tile_parallel.py``), bit-equal to the
+    single-device render; every rank calls it for every view.  The height
+    must split into whole ``TILE_Y`` rows per rank (``ValueError``
+    otherwise; the JAX CLI checks 16-px rows, which its own slicing then
+    refuses at 32-px tiles)."""
+    import torch
+
+    from gsplat_tpu_torch.core import transforms as Tr
+    from gsplat_tpu_torch.ops.preprocess import TILE_Y
+    from gsplat_tpu_torch.ops.rasterize import RasterizeConfig
+    from gsplat_tpu_torch.parallel.tile_parallel import (
+        make_tile_mesh, make_tile_sharded_render, slice_camera)
+
+    cams = scene.getTrainCameras() or scene.getTestCameras()
+    W, H = cams[0].image_width, cams[0].image_height
+    if H % (TILE_Y * n) != 0:
+        raise ValueError(f"--tile_parallel {n} needs image height ({H}) to "
+                         f"split into whole {TILE_Y}-px tile rows per device")
+    dev = gaussians.device
+    cfg = RasterizeConfig(width=W, height=H, sh_degree=sh_degree,
+                          max_instances=1 << 20, backend=backend)
+    fn = make_tile_sharded_render(make_tile_mesh(n, dev), cfg, device=dev)
+    p = gaussians.params
+    bg = torch.as_tensor(background, dtype=torch.float32, device=dev)
+
+    def tile_render(view):
+        out = fn(p.xyz, Tr.scaling_activation(p.scaling), p.rotation,
+                 Tr.opacity_activation(p.opacity[:, 0]),
+                 torch.cat([p.features_dc, p.features_rest], dim=1),
+                 slice_camera(view, n, dev), bg)
+        if bool(out["overflow"]):
+            print("[render] WARNING: instance capacity overflow on "
+                  "view — raise max_instances")
+        return out
+
+    return tile_render
 
 
-def main(argv=None):
-    from gsplat_tpu_torch.config import (ModelParams, PipelineParams,
-                                         get_combined_args)
+def build_parser():
+    from gsplat_tpu_torch.config import ModelParams, PipelineParams
 
     parser = ArgumentParser(description="Testing script parameters")
     model = ModelParams(parser, sentinel=True)
@@ -106,8 +141,43 @@ def main(argv=None):
     parser.add_argument("--backend", default="auto", type=str)
     parser.add_argument("--tile_parallel", default=1, type=int,
                         help="shard each image's tile rows over N devices "
-                             "(not ported yet)")
+                             "(bit-exact vs single-device)")
+    return parser, model
+
+
+def main(argv=None):
+    from gsplat_tpu_torch.config import get_combined_args
+    from gsplat_tpu_torch.device import resolve_device
+    from gsplat_tpu_torch.parallel import multihost as mh
+
+    argv = list(sys.argv[1:] if argv is None else argv)
+    args = get_combined_args(build_parser()[0], argv)
+    if args.tile_parallel > 1 and mh.launched():
+        mh.init_multihost(device=args.data_device or "cuda")
+        try:
+            render_rank(argv)
+        finally:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+    elif args.tile_parallel > 1:
+        device = resolve_device(args.data_device or "cuda")
+        n = mh.local_ranks(1, args.tile_parallel, device)
+        mh.spawn_local(render_rank, n, (argv,), device=device)
+    else:
+        render_rank(argv)
+
+
+def render_rank(argv):
+    """The render command in one process, or in one rank of a tile-sharded
+    render (the group already started): rank 0 writes every file, the
+    other ranks render their slices of the same views."""
+    import torch.distributed as dist
+
+    from gsplat_tpu_torch.config import get_combined_args
+
+    parser, model = build_parser()
     args = get_combined_args(parser, argv)
+    rank = dist.get_rank() if dist.is_initialized() else 0
     print("Rendering " + args.model_path)
 
     from gsplat_tpu_torch.data.scene import Scene
@@ -144,6 +214,13 @@ def main(argv=None):
             compute_cov3D_python=bool(getattr(args, "compute_cov3D_python",
                                               False)),
             device=device)
+    if rank != 0:
+        # the other ranks' part: their slices of the views rank 0 writes
+        for view in ((scene.getTrainCameras() if not args.skip_train else [])
+                     + (scene.getTestCameras() if not args.skip_test
+                        else [])):
+            renderer(view)
+        return
     if not args.skip_train:
         render_set(dataset.model_path, "train", scene.loaded_iter,
                    scene.getTrainCameras(), gaussians, background,

@@ -16,13 +16,27 @@ each PLY and ``appearance_chkpnt<n>.npz`` beside each checkpoint, which
 live-viewer socket on ``--ip``/``--port`` unless ``--disable_gui_server``
 is given, and trains on without it when the port cannot be bound.
 
-Not ported yet, and refused before anything is written: ``--multihost``
-and multi-device training (ROADMAP Queue 1 item 7).
+Several devices, one process each (``gsplat_tpu_torch/parallel``):
+``--data_parallel N`` trains N cameras a step, ``--tile_parallel N`` splits
+each image's tile rows over N devices, both together an (M, N) mesh.
+Started alone, the command starts its own local ranks
+(``torch.multiprocessing``), as many as the JAX CLI would use devices:
+clamped to the GPUs there are, or as asked with ``--data_device cpu``
+(gloo).  Under ``torchrun`` it joins the launched group:
+
+    torchrun --nproc_per_node N -m gsplat_tpu_torch.scripts.train \
+        -s <data> -m <out> --data_parallel N
+
+``--multihost`` (with ``--coordinator_address``, ``--num_processes`` and
+``--process_id``, or torchrun's environment) starts the group over
+``tcp://`` on one host or many.  Only rank 0 writes files and opens the
+viewer socket.
 """
 from __future__ import annotations
 
 import json
 import os
+import random
 import sys
 import uuid
 from argparse import ArgumentParser, Namespace
@@ -69,7 +83,8 @@ def build_parser():
     parser.add_argument("--iterations_override", type=int, default=0)
     parser.add_argument("--disable_gui_server", action="store_true")
     parser.add_argument("--multihost", action="store_true",
-                        help="multi-host training (not ported yet)")
+                        help="start the torch.distributed group before "
+                             "training (same command on every host)")
     parser.add_argument("--coordinator_address", type=str, default=None)
     parser.add_argument("--num_processes", type=int, default=None)
     parser.add_argument("--process_id", type=int, default=None)
@@ -77,14 +92,41 @@ def build_parser():
 
 
 def main(argv=None):
+    from gsplat_tpu_torch.device import resolve_device
+    from gsplat_tpu_torch.parallel import multihost as mh
+
+    argv = list(sys.argv[1:] if argv is None else argv)
+    args = build_parser()[0].parse_args(argv)
+    if args.multihost or mh.launched():
+        rank, world = mh.init_multihost(
+            args.coordinator_address, args.num_processes, args.process_id,
+            device=args.data_device)
+        print(f"[multihost] process {rank}/{world} initialized")
+        try:
+            train_rank(argv)
+        finally:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+        return
+    n = mh.local_ranks(args.data_parallel, args.tile_parallel,
+                       resolve_device(args.data_device))
+    if n > 1:
+        print(f"[parallel] starting {n} local ranks")
+        mh.spawn_local(train_rank, n, (argv,), device=args.data_device)
+    else:
+        train_rank(argv)
+
+
+def train_rank(argv):
+    """One rank's training: all of it on a single device, or this rank's
+    part of a multi-device run (the group already started)."""
+    import torch.distributed as dist
+
     from gsplat_tpu_torch.config import OptimizationParams
 
     parser, (lp, op, pp, _) = build_parser()
-    args = parser.parse_args(argv if argv is not None else sys.argv[1:])
-    if args.multihost:
-        raise NotImplementedError(
-            "--multihost: multi-host training is not ported yet; see "
-            "ROADMAP.md, Queue 1 item 7")
+    args = parser.parse_args(argv)
+    rank = dist.get_rank() if dist.is_initialized() else 0
     args.save_iterations.append(args.iterations)
 
     dataset = lp.extract(args)
@@ -106,7 +148,15 @@ def main(argv=None):
     device = resolve_device(dataset.data_device)
 
     print("Optimizing " + args.model_path)
-    prepare_output(args)
+    if rank == 0:
+        prepare_output(args)
+    if dist.is_initialized():
+        # every rank takes rank 0's output folder and camera shuffle, so
+        # that the ranks index the same camera list
+        shared = [args.model_path, random.getrandbits(63)]
+        dist.broadcast_object_list(shared, src=0)
+        args.model_path = shared[0]
+        random.seed(shared[1])
     if args.detect_anomaly:
         # reference: torch.autograd.set_detect_anomaly(args.detect_anomaly)
         # (train.py:302,324)
@@ -123,7 +173,8 @@ def main(argv=None):
                               capacity=capacity or (1 << 18), device=device)
     dataset.model_path = args.model_path
     scene = Scene(dataset, gaussians,
-                  lazy_images=getattr(args, "low_memory", False))
+                  lazy_images=getattr(args, "low_memory", False),
+                  write_inputs=rank == 0)
     if capacity == 0 and gaussians.num_alive * 16 > gaussians.capacity:
         # auto-grow so densification has headroom
         needed = 1 << int(np.ceil(np.log2(gaussians.num_alive * 16)))
@@ -143,7 +194,7 @@ def main(argv=None):
         print(f"Resumed from {args.start_checkpoint} at iteration {first_iter}")
 
     gui_source = None
-    if not args.disable_gui_server:
+    if not args.disable_gui_server and rank == 0:
         try:
             from gsplat_tpu_torch.viz import network_gui
             network_gui.init(args.ip, args.port)
@@ -179,9 +230,12 @@ def main(argv=None):
         if trainer.appearance.load(app_ckpt):
             print(f"Resumed appearance embedding from {app_ckpt}")
 
-    metrics_log = open(os.path.join(args.model_path, "train_log.jsonl"), "a")
+    metrics_log = (open(os.path.join(args.model_path, "train_log.jsonl"), "a")
+                   if rank == 0 else None)
 
     def log_cb(it, metrics, tr):
+        if metrics_log is None:
+            return
         rec = {"iter": it, "loss": float(metrics["loss"]),
                "l1": float(metrics["l1"]),
                "n_visible": int(metrics["n_visible"]),
@@ -204,7 +258,8 @@ def main(argv=None):
         checkpoint_iterations=set(args.checkpoint_iterations),
         callback=log_cb, first_iter=first_iter,
         profile_dir=args.profile_dir or None)
-    metrics_log.close()
+    if metrics_log is not None:
+        metrics_log.close()
     print(f"\nTraining complete in {elapsed:.1f}s.")
 
 

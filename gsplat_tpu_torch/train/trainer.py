@@ -12,9 +12,9 @@ ones it was given as they were; it never reads a value back to the host, so
 the overflow gate is a ``torch.where`` per state tensor, as in the JAX
 package.  ``make_appearance_step`` is the same step with the per-camera
 appearance embedding (``models/appearance.py``) trained beside the
-gaussians.  ``Trainer`` is the host loop around them (single device), with
-the live-viewer socket polled at the top of each iteration
-(``viz/network_gui.py``).
+gaussians.  ``Trainer`` is the host loop around them, on one device or, one
+process per device, over the meshes of ``parallel/``, with the live-viewer
+socket polled at the top of each iteration (``viz/network_gui.py``).
 """
 from __future__ import annotations
 
@@ -74,6 +74,42 @@ def camera_batch(cam, gt_depth=None, gt_seg=None, device="cuda"):
     }
 
 
+def make_image_loss(opt, depth_loss_choice: Optional[str], use_seg: bool,
+                    num_class: int, device):
+    """The loss of one camera's rendered planes: ``image_loss(image [3,H,W],
+    depth [H,W], segment [S,H,W] or None, batch, generator, draws) ->
+    (loss, {"l1", "depth_loss", "seg_loss"})``.  The single-device loss and
+    the tile-sharded steps (``parallel/tile_parallel.py``, which take it on
+    the gathered full image) share it."""
+    def image_loss(image, depth, segment, batch, generator=None, draws=None):
+        gt = batch["gt_image"]
+        l1 = L.l1_loss(image, gt)
+        loss = ((1.0 - opt.lambda_dssim) * l1
+                + opt.lambda_dssim * (1.0 - L.ssim(image, gt)))
+
+        zero = torch.zeros((), dtype=torch.float32, device=device)
+        depth_loss = zero
+        if depth_loss_choice is not None:
+            # reference normalizes depth by its max before the inverse-depth
+            # losses (gaussian_renderer/__init__.py:375 + train.py:114-141)
+            depth = depth / (torch.max(depth) + 1e-5)
+            dl = L.depth_loss_dispatch(depth_loss_choice, depth,
+                                       batch["gt_depth"], opt,
+                                       generator=generator, draws=draws)
+            depth_loss = torch.where(batch["has_depth"], dl, 0.0)
+            loss = loss + depth_loss
+
+        seg_loss = zero
+        if use_seg and num_class > 0:
+            sl = L.segment_loss(segment, batch["gt_seg"]) * opt.lambda_segment
+            seg_loss = torch.where(batch["has_seg"], sl, 0.0)
+            loss = loss + seg_loss
+        return loss, {"l1": l1, "depth_loss": depth_loss,
+                      "seg_loss": seg_loss}
+
+    return image_loss
+
+
 def make_loss_fn(cfg: RasterizeConfig, opt, sh_degree: int,
                  depth_loss_choice: Optional[str], use_seg: bool, bg,
                  convert_shs_python: bool = False,
@@ -89,6 +125,8 @@ def make_loss_fn(cfg: RasterizeConfig, opt, sh_degree: int,
     so gradients still flow."""
     dev = resolve_device(device)
     bg = torch.as_tensor(bg, dtype=torch.float32, device=dev)
+    image_loss = make_image_loss(opt, depth_loss_choice, use_seg,
+                                 cfg.num_class, dev)
 
     def loss_fn(params: GaussianParams, m2d_off, batch, generator=None,
                 draws=None, app_params=None):
@@ -129,32 +167,10 @@ def make_loss_fn(cfg: RasterizeConfig, opt, sh_degree: int,
             factors = app_lib.apply(app_params, batch["uid"],
                                     batch["viewmatrix"])
             image = image * factors.reshape(3, 1, 1)
-        gt = batch["gt_image"]
-        l1 = L.l1_loss(image, gt)
-        loss = ((1.0 - opt.lambda_dssim) * l1
-                + opt.lambda_dssim * (1.0 - L.ssim(image, gt)))
-
-        zero = torch.zeros((), dtype=torch.float32, device=dev)
-        depth_loss = zero
-        if depth_loss_choice is not None:
-            # reference normalizes depth by its max before the inverse-depth
-            # losses (gaussian_renderer/__init__.py:375 + train.py:114-141)
-            depth = out["depth"] / (torch.max(out["depth"]) + 1e-5)
-            dl = L.depth_loss_dispatch(depth_loss_choice, depth,
-                                       batch["gt_depth"], opt,
-                                       generator=generator, draws=draws)
-            depth_loss = torch.where(batch["has_depth"], dl, 0.0)
-            loss = loss + depth_loss
-
-        seg_loss = zero
-        if use_seg and cfg.num_class > 0:
-            sl = L.segment_loss(out["segment"], batch["gt_seg"]) \
-                * opt.lambda_segment
-            seg_loss = torch.where(batch["has_seg"], sl, 0.0)
-            loss = loss + seg_loss
-
+        loss, parts = image_loss(image, out["depth"], out.get("segment"),
+                                 batch, generator, draws)
         auxout = {
-            "l1": l1, "depth_loss": depth_loss, "seg_loss": seg_loss,
+            **parts,
             "radii": out["radii"], "visibility": out["visibility"],
             "overflow": out["overflow"], "num_rendered": out["num_rendered"],
             "num_padded": out["num_padded"],
@@ -178,14 +194,22 @@ def gate_on_overflow(pred, new_tree, old_tree):
 def _make_step(cfg: RasterizeConfig, opt, sh_degree: int,
                depth_loss_choice: Optional[str], use_seg: bool, bg,
                track_stats: bool, app_lr: float, convert_shs_python: bool,
-               compute_cov3d_python: bool, device):
-    """The step body ``make_train_step`` and ``make_appearance_step``
-    share: ``step(params, opt_state, aux, app, batch, lrs, generator,
-    draws)``, where ``app`` is ``()`` or ``(app_params, app_opt_state)``.
-    One ``torch.autograd.grad`` over the gaussian parameters, the
-    screen-space offsets and the appearance parameters; the appearance's
-    own Adam update at ``app_lr`` with its own step count; the overflow
-    gate over every state tree."""
+               compute_cov3d_python: bool, device, reduce=None):
+    """The step body ``make_train_step``, ``make_appearance_step`` and the
+    data-parallel steps (``parallel/data_parallel.py``) share:
+    ``step(params, opt_state, aux, app, batch, lrs, generator, draws)``,
+    where ``app`` is ``()`` or ``(app_params, app_opt_state)``.  One
+    ``torch.autograd.grad`` over the gaussian parameters, the screen-space
+    offsets and the appearance parameters; the appearance's own Adam update
+    at ``app_lr`` with its own step count; the overflow gate over every
+    state tree.
+
+    ``reduce`` is the reduction hook across devices: ``reduce.grads(grads,
+    n)`` between the gradient and Adam (``n`` gaussian fields, then the
+    offsets' gradient, then the appearance's), ``reduce.stats`` in place of
+    ``add_densification_stats``, and ``reduce.metrics`` before the gate,
+    which reads the reduced overflow.  ``None``, the single device, runs
+    none of them."""
     dev = resolve_device(device)
     loss_fn = make_loss_fn(cfg, opt, sh_degree, depth_loss_choice, use_seg,
                            bg, convert_shs_python=convert_shs_python,
@@ -212,13 +236,16 @@ def _make_step(cfg: RasterizeConfig, opt, sh_degree: int,
                  for g, x in zip(torch.autograd.grad(
                      loss, wrt, allow_unused=True), wrt)]
         n = len(leaves)
+        if reduce is not None:
+            grads = reduce.grads(grads, n)
         gparams, g_m2d = GaussianParams(*grads[:n]), grads[n]
 
         # densification stats: NDC-scaled mean2d grad norm
         # (backward.cu:627-628; add_densification_stats gaussian_model.py:523)
         if track_stats:
-            aux = add_densification_stats(aux, g_m2d * scale[None, :],
-                                          auxout["radii"])
+            aux = (add_densification_stats if reduce is None
+                   else reduce.stats)(aux, g_m2d * scale[None, :],
+                                      auxout["radii"])
 
         lrs_tree = GaussianParams(**{k: lrs[k]
                                      for k in GaussianParams._fields})
@@ -237,7 +264,9 @@ def _make_step(cfg: RasterizeConfig, opt, sh_degree: int,
             "num_padded": auxout["num_padded"],
             "n_visible": torch.sum(auxout["visibility"]),
         }
-        return (*gate_on_overflow(auxout["overflow"], new, old), metrics)
+        if reduce is not None:
+            metrics = reduce.metrics(metrics)
+        return (*gate_on_overflow(metrics["overflow"], new, old), metrics)
 
     return step
 
@@ -287,7 +316,7 @@ def make_train_step(cfg: RasterizeConfig, opt, sh_degree: int,
 class Trainer:
     """Host-side loop: mirrors train.py's schedule (densify every 100 its
     between 500 and 15k, opacity reset every 3k, SH degree up every 1k), on
-    one device, the model's.
+    the model's device, one rank of a mesh or the only one.
 
     What differs from the JAX ``Trainer``:
     - PyTorch compiles nothing, so the JAX package's compile-ahead machinery
@@ -305,9 +334,20 @@ class Trainer:
     - The appearance embedding's initial weights come from a
       ``torch.Generator`` seeded 1337 (``models/appearance.py``), not from
       JAX's key.
-    - Options the port does not have yet raise ``NotImplementedError`` with
-      their ROADMAP item: ``data_parallel`` other than 1 and
-      ``tile_parallel`` above 1 (Queue 1 item 7).
+    - Multi-device training is one process per device (``parallel/``):
+      ``data_parallel`` and ``tile_parallel`` build their mesh over the
+      ranks of the ``torch.distributed`` group, ``data_parallel`` -1 or
+      above the ranks there are taking them all.  Every rank runs this loop
+      on the replicated state: densify, prune, the opacity reset and the
+      capacity checks (on reduced metrics) run on every rank from the same
+      state and the same seeded generator, so the ranks stay bit-identical.
+      Each data rank draws its depth losses from a generator of its own
+      (seeded ``seed + 1 + its data coordinate``, the same on every rank
+      of a tile group; JAX folds the device index into its key); a
+      tile-sharded run draws from the one generator, the same on every
+      rank.  Only rank 0 writes files (PLY, checkpoints,
+      the evaluation log and its renders, the profiler trace) and polls the
+      viewer socket; the STOP file ends every rank at the same iteration.
 
     As in the JAX ``Trainer``, ``grad_precision`` and ``feat_precision``
     default to ``"bf16"`` (per-instance gradient rows rounded to bf16
@@ -324,10 +364,6 @@ class Trainer:
                  gt_cache=0, feat_precision="bf16",
                  convert_shs_python=False, compute_cov3d_python=False,
                  debug_from=-1, vs_prune=False, white_background=False):
-        if data_parallel not in (0, 1) or tile_parallel > 1:
-            raise NotImplementedError(
-                "data_parallel / tile_parallel: multi-GPU training is not "
-                "ported yet; see ROADMAP.md, Queue 1 item 7")
         for name, value in (("grad_precision", grad_precision),
                             ("feat_precision", feat_precision)):
             if value not in ("f32", "bf16"):
@@ -361,6 +397,12 @@ class Trainer:
         # densify_from_iter (train.py:178-180)
         self.white_background = white_background
         self.last_densify = None  # dict written after each densify call
+        if (convert_shs_python or compute_cov3d_python) and (
+                (data_parallel and data_parallel != 1) or tile_parallel > 1):
+            # this guard must stay ahead of any parallel step factory: the
+            # parallel steps do not take these flags
+            raise ValueError("convert_SHs_python/compute_cov3D_python are "
+                             "single-device debug backends")
         cams = scene.getTrainCameras()
         W, H = cams[0].image_width, cams[0].image_height
         self.appearance = None
@@ -382,6 +424,7 @@ class Trainer:
                                   dtype=torch.float32, device=self.device)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
+        self._setup_parallel(data_parallel, tile_parallel, cams, W, H, seed)
         self.lr_fn = make_lr_fn(opt, model.spatial_lr_scale)
         self._steps = {}
         self._cfg = lambda sh, mi=None: RasterizeConfig(
@@ -403,10 +446,87 @@ class Trainer:
             planes = 3 + 2  # rgb + depth + seg (seg int32 counts as one)
             per_batch = planes * W * H * 4
             gt_cache = max(8, int(2e9 // max(per_batch, 1)))
-        self._gt_cache = max(gt_cache, 2)
+        self._gt_cache = max(gt_cache, 2 * max(1, self.data_parallel))
         self._batches = OrderedDict()
 
+    def _setup_parallel(self, data_parallel, tile_parallel, cams, W, H,
+                        seed):
+        """The mesh of a multi-device run (JAX ``Trainer.__init__``
+        :317-362): ``data``, ``tile`` or both, over the ranks of the
+        process group."""
+        import torch.distributed as dist
+        self.mesh = None
+        self.data_parallel = 0
+        self.tile_parallel = tile_parallel if tile_parallel > 1 else 0
+        self.rank = dist.get_rank() if dist.is_initialized() else 0
+        self.step_generator = self.generator
+        if self.tile_parallel and H % (pre_lib.TILE_Y
+                                       * self.tile_parallel) != 0:
+            raise ValueError(
+                f"--tile_parallel {self.tile_parallel} needs the image "
+                f"height ({H}) to split into whole {pre_lib.TILE_Y}-px tile "
+                "rows per device")
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        if data_parallel and data_parallel != 1:
+            navail = world // max(1, self.tile_parallel)
+            ndev = (navail if data_parallel < 0
+                    else min(data_parallel, navail))
+            if ndev > 1:
+                bad = [c for c in cams
+                       if (c.image_width, c.image_height) != (W, H)]
+                if bad:
+                    raise ValueError(
+                        "--data_parallel requires a uniform camera "
+                        f"resolution; got {len(bad)} cameras != {W}x{H}")
+                from gsplat_tpu_torch.parallel import mesh_axis
+                if self.tile_parallel:
+                    from gsplat_tpu_torch.parallel.mesh2d import make_2d_mesh
+                    self.mesh = make_2d_mesh(ndev, self.tile_parallel,
+                                             self.device)
+                else:
+                    from gsplat_tpu_torch.parallel.data_parallel import (
+                        make_data_mesh)
+                    self.mesh = make_data_mesh(ndev, self.device)
+                self.data_parallel = ndev
+                # one camera per rank: the sampler gives every rank the same
+                # global order and this rank its own camera of it
+                self.proc_idx = mesh_axis(self.mesh, "data").index
+                self._sampler = None
+                self.step_generator = torch.Generator(device=self.device)
+                self.step_generator.manual_seed(seed + 1 + self.proc_idx)
+                print(f"[parallel] {ndev} camera(s) x "
+                      f"{max(1, self.tile_parallel)} tile slice(s) per step "
+                      f"over {ndev * max(1, self.tile_parallel)} ranks "
+                      f"(rank {self.rank} of {world})")
+        if self.tile_parallel and not self.data_parallel:
+            from gsplat_tpu_torch.parallel.tile_parallel import make_tile_mesh
+            self.mesh = make_tile_mesh(self.tile_parallel, self.device)
+            print(f"[parallel] tile-sharded training over "
+                  f"{self.tile_parallel} ranks (one camera per step, row "
+                  f"slices; rank {self.rank} of {world})")
+
     def _build_step(self, sh_degree, max_instances):
+        use_app = self.appearance is not None
+        app_lr = self.appearance.lr if use_app else 1e-4
+        cfg = self._cfg(sh_degree, max_instances)
+        args = (self.mesh, cfg, self.opt, sh_degree, self.depth_loss_choice,
+                self.use_seg, self.bg)
+        if self.data_parallel and self.tile_parallel:
+            from gsplat_tpu_torch.parallel.mesh2d import make_2d_train_step
+            return make_2d_train_step(*args, use_appearance=use_app,
+                                      app_lr=app_lr, device=self.device)
+        if self.tile_parallel:
+            from gsplat_tpu_torch.parallel.tile_parallel import (
+                make_tile_sharded_train_step)
+            return make_tile_sharded_train_step(
+                *args, use_appearance=use_app, app_lr=app_lr,
+                device=self.device)[0]
+        if self.data_parallel:
+            from gsplat_tpu_torch.parallel import data_parallel as dp
+            if use_app:
+                return dp.make_parallel_appearance_step(
+                    *args, app_lr=app_lr, device=self.device)
+            return dp.make_parallel_train_step(*args, device=self.device)
         if self.appearance is not None:
             return make_appearance_step(
                 self._cfg(sh_degree, max_instances), self.opt, sh_degree,
@@ -489,7 +609,8 @@ class Trainer:
 
         t_start = time.time()
         for it in range(first_iter + 1, iterations + 1):
-            if profile_dir and it - first_iter == profile_iters[0]:
+            if (profile_dir and self.rank == 0
+                    and it - first_iter == profile_iters[0]):
                 acts = [torch.profiler.ProfilerActivity.CPU]
                 if self.device.type == "cuda":
                     acts.append(torch.profiler.ProfilerActivity.CUDA)
@@ -505,14 +626,26 @@ class Trainer:
                 prof = None
                 print(f"[it {it}] profiler trace written to {profile_dir}")
             # live-viewer poll (reference train.py:71-84)
-            if self.gui_source_path is not None:
+            if self.gui_source_path is not None and self.rank == 0:
                 self._poll_gui()
             if it % 1000 == 0:
                 m.oneup_sh_degree()
-            if not stack:
-                stack = list(range(len(cams)))
-            cam_idx = stack.pop(rng.integers(0, len(stack)))
-            batch = self._get_batch(cams, cam_idx)
+            if self.data_parallel:
+                from gsplat_tpu_torch.parallel.data_parallel import (
+                    stack_camera_batches)
+                from gsplat_tpu_torch.parallel.multihost import (
+                    ShardedCameraSampler)
+                if self._sampler is None:
+                    self._sampler = ShardedCameraSampler(
+                        len(cams), 1, self.proc_idx, self.data_parallel,
+                        seed=0)
+                batch = stack_camera_batches(
+                    [self._get_batch(cams, i) for i in self._sampler.sample()])
+            else:
+                if not stack:
+                    stack = list(range(len(cams)))
+                cam_idx = stack.pop(rng.integers(0, len(stack)))
+                batch = self._get_batch(cams, cam_idx)
 
             lrs = self.lr_fn(it)
             step = self._step_fn(m.active_sh_degree)
@@ -521,11 +654,11 @@ class Trainer:
                 (m.params, m.opt_state, m.aux, app.params, app.opt_state,
                  metrics) = step(m.params, m.opt_state, m.aux, app.params,
                                  app.opt_state, batch, lrs,
-                                 generator=self.generator)
+                                 generator=self.step_generator)
             else:
                 m.params, m.opt_state, m.aux, metrics = step(
                     m.params, m.opt_state, m.aux, batch, lrs,
-                    generator=self.generator)
+                    generator=self.step_generator)
             if 0 <= self.debug_from <= it:
                 # reference pipe.debug from --debug_from: a per-step finite
                 # check (one device sync), and the step's inputs dumped on
@@ -539,7 +672,8 @@ class Trainer:
                     arrs.update({f"batch_{k}": np.asarray(
                         v.cpu() if isinstance(v, torch.Tensor) else v)
                         for k, v in batch.items()})
-                    np.savez(snap, **arrs)
+                    if self.rank == 0:
+                        np.savez(snap, **arrs)
                     raise FloatingPointError(
                         f"non-finite loss {loss_now} at iteration {it}; "
                         f"step inputs dumped to {snap}")
@@ -572,12 +706,12 @@ class Trainer:
                     callback(it, metrics, self)
                 # graceful external stop: touching <model_path>/STOP ends
                 # the run cleanly (checkpoint + PLY)
-                if self.model_path and os.path.exists(
-                        os.path.join(self.model_path, "STOP")):
+                if self._stop_requested():
                     print(f"[it {it}] STOP file found — saving and exiting")
-                    self.scene.save(it)
-                    m.save_checkpoint(
-                        os.path.join(self.model_path, f"chkpnt{it}.npz"), it)
+                    if self.rank == 0:
+                        self.scene.save(it)
+                        m.save_checkpoint(os.path.join(
+                            self.model_path, f"chkpnt{it}.npz"), it)
                     break
 
             # densification schedule (train.py:169-180)
@@ -612,6 +746,8 @@ class Trainer:
                         m.params, m.aux, m.opt_state)
                     self._reset_iter = it
 
+            if self.rank != 0:
+                continue    # rank 0 writes the files and evaluates
             if it in save_iterations:
                 print(f"\n[ITER {it}] Saving Gaussians")
                 self.scene.save(it)
@@ -635,6 +771,18 @@ class Trainer:
         if prof is not None:
             prof.stop()
         return time.time() - t_start
+
+    def _stop_requested(self) -> bool:
+        """Whether ``<model_path>/STOP`` exists; over several ranks, whether
+        any rank saw it, so that every rank stops at the same iteration."""
+        seen = bool(self.model_path) and os.path.exists(
+            os.path.join(self.model_path, "STOP"))
+        if self.mesh is None:
+            return seen
+        import torch.distributed as dist
+        flag = torch.tensor([int(seen)], device=self.device)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        return bool(flag)
 
     def _poll_gui(self):
         """Serve the viewer's camera messages, if a client is connected,

@@ -1,5 +1,5 @@
 """The training command line of the port on the CPU: its parser against
-the JAX CLI's, what it refuses, the ``Trainer``'s STOP file, and
+the JAX CLI's, its multi-device options, the ``Trainer``'s STOP file, and
 ``scripts/train.py`` end to end with exact cull on
 ``make_synthetic_scene.make_scene``'s NeRFstudio scene, written with the
 port (``torch_helpers.make_scene_port``: 48x48, 150 gaussians, 6
@@ -18,8 +18,9 @@ from gsplat_tpu_torch.models import gaussians as tgauss
 from gsplat_tpu_torch.scripts import train as ttrain
 from gsplat_tpu_torch.train.trainer import Trainer as TTrainer
 
-from torch_helpers import (SCENE_CLASSES, RecordSteps, port_opt,  # noqa: F401
-                           scene_dir, scenes)
+from torch_helpers import (SCENE_CLASSES, RecordSteps,  # noqa: F401
+                           make_scene_port, port_opt, run_module, scene_dir,
+                           scenes)
 
 
 def _jax_parse(argv):
@@ -61,15 +62,52 @@ def test_parser_matches_jax():
 
 
 def test_unported_options_raise(scenes, tmp_path):
+    """The multi-device options, which raised before they were ported: the
+    ``Trainer``'s checks (``data_parallel`` clamped to the one rank there
+    is, ``tile_parallel`` needing whole tile rows and a process group, the
+    debug backends single-device only); ``--multihost`` at world size 1
+    over gloo and ``--tile_parallel 2`` (two local ranks) through the CLI,
+    each writing the files of a single-device run."""
     _, ts = scenes
     m = ts.gaussians
-    for kw in (dict(data_parallel=2), dict(tile_parallel=2)):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            TTrainer(m, ts, port_opt(), **kw)
-    base = ["-s", "x", "-m", str(tmp_path / "o"), "--data_device", "cpu"]
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ttrain.main(base + ["--multihost"])
-    assert not (tmp_path / "o").exists()     # refused before writing
+    tr = TTrainer(m, ts, port_opt(), data_parallel=-1)
+    assert tr.data_parallel == 0 and tr.mesh is None   # one rank: one device
+    with pytest.raises(ValueError, match="whole 32-px tile rows"):
+        TTrainer(m, ts, port_opt(), tile_parallel=2)    # 48-px images
+    with pytest.raises(ValueError, match="single-device debug"):
+        TTrainer(m, ts, port_opt(), data_parallel=2, convert_shs_python=True)
+
+    scene = make_scene_port(str(tmp_path / "scene64"), n_cams=4, width=64,
+                            height=64)
+    files = ("cfg_args", "input.ply", "cameras.json", "train_log.jsonl",
+             "chkpnt4.npz",
+             os.path.join("point_cloud", "iteration_4", "point_cloud.ply"))
+    base = ["-s", scene, "--data_device", "cpu", "--disable_gui_server",
+            "--iterations_override", "4", "--checkpoint_iterations", "4",
+            "--capacity", "512", "--max_instances", "16384"]
+    import torch.distributed as dist
+
+    from gsplat_tpu_torch.parallel.multihost import free_port
+    port = free_port()
+    for name, flags in (
+            ("multihost", ["--multihost", "--coordinator_address",
+                           f"127.0.0.1:{port}", "--num_processes", "1",
+                           "--process_id", "0"]),
+            ("tile2", ["--tile_parallel", "2"])):
+        out = str(tmp_path / name)
+        if name == "multihost":
+            ttrain.main(base + ["-m", out] + flags)   # one rank, in process
+            assert not dist.is_initialized()
+        else:   # two local ranks: in a process killed on a time limit
+            said = run_module("gsplat_tpu_torch.scripts.train",
+                              base + ["-m", out] + flags)
+            assert "[parallel] starting 2 local ranks" in said
+        for f in files:
+            assert os.path.exists(os.path.join(out, f)), (name, f)
+        with open(os.path.join(out, "train_log.jsonl")) as fh:
+            log = [json.loads(x) for x in fh]
+        assert [r["iter"] for r in log] == [4]
+        assert np.isfinite(log[0]["loss"]) and "overflow" not in log[0]
 
 
 def test_trainer_stop_file(scenes, tmp_path):

@@ -147,6 +147,10 @@ def test_import_is_jax_free():
             "gsplat_tpu_torch.viz.video, gsplat_tpu_torch.viz.camera_trajectory, "
             "gsplat_tpu_torch.viz.network_gui, "
             "gsplat_tpu_torch.models.appearance, gsplat_tpu_torch.models.pose, "
+            "gsplat_tpu_torch.parallel, gsplat_tpu_torch.parallel.multihost, "
+            "gsplat_tpu_torch.parallel.data_parallel, "
+            "gsplat_tpu_torch.parallel.tile_parallel, "
+            "gsplat_tpu_torch.parallel.mesh2d, "
             "gsplat_tpu_torch.tools.probes, gsplat_tpu_torch.tools.timing, "
             "gsplat_tpu_torch.tools.workload, "
             "gsplat_tpu_torch.tools.bench_fwd_attrib, "

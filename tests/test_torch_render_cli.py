@@ -16,6 +16,7 @@ import os
 import random
 import shutil
 import sys
+import types
 
 import numpy as np
 import pytest
@@ -39,7 +40,8 @@ from gsplat_tpu_torch.utils import general as tgeneral
 from gsplat_tpu_torch.viz import camera_trajectory as ttraj
 from gsplat_tpu_torch.viz import video as tvideo
 
-from torch_helpers import ATOL, SCENE_CLASSES, make_scene_port, model_state_np
+from torch_helpers import (ATOL, SCENE_CLASSES, make_camera, make_scene_port,
+                           model_state_np, run_module)
 
 SIZE = 64
 PATH_FRAMES = 3
@@ -266,9 +268,11 @@ def test_full_eval_train_segment_and_refusals(rendered, monkeypatch):
     """(d) ``full_eval``'s commands, with ``run`` recording them, equal
     JAX's with the package swapped under every combination of the
     ``--skip_*`` flags; ``train_segment`` hands the training CLI JAX's arguments; the
-    render CLI refuses ``--tile_parallel 2`` (item 7) and another
-    backend, and renders with the pipe's debug flags, which reach
-    ``renderer.render``, within one level of JAX's default render."""
+    render CLI refuses another backend, renders with the pipe's debug
+    flags, which reach ``renderer.render``, within one level of JAX's
+    default render, and with ``--tile_parallel 2`` (two local ranks) the
+    single-device PNGs bit for bit; a height that does not split into
+    whole tile rows raises ``ValueError``."""
     from gsplat_tpu.scripts import train as jtrain
     from gsplat_tpu_torch.scripts import train as ttrain
 
@@ -305,9 +309,21 @@ def test_full_eval_train_segment_and_refusals(rendered, monkeypatch):
     f = os.path.join("test", "ours_1", "renders", "00000.png")
     assert np.abs(_png(os.path.join(d2, f))
                   - _png(os.path.join(d1, f))).max() <= 1
-    with pytest.raises(NotImplementedError, match="item 7"):
-        trender.main(["-m", d2, "--data_device", "cpu", "--tile_parallel",
-                      "2", "--skip_test"])
+    # tile rows split over two local ranks: the single-device PNGs
+    d3 = d2 + "_tile2"
+    shutil.copytree(d2, d3)
+    run_module("gsplat_tpu_torch.scripts.render",
+               ["-m", d3, "--data_device", "cpu", "--tile_parallel", "2",
+                "--skip_test"])
+    f = os.path.join("train", "ours_1", "renders")
+    assert len(os.listdir(os.path.join(d3, f))) == 5
+    for name in os.listdir(os.path.join(d3, f)):
+        np.testing.assert_array_equal(_png(os.path.join(d3, f, name)),
+                                      _png(os.path.join(d2, f, name)))
+    one = types.SimpleNamespace(getTrainCameras=lambda: [
+        make_camera(SIZE, SIZE)], getTestCameras=lambda: [])
+    with pytest.raises(ValueError, match="whole 32-px tile rows"):
+        trender.make_tile_renderer(3, one, None, np.zeros(3), "auto", 3)
     with pytest.raises(ValueError, match="backend"):
         trender.main(["-m", d2, "--data_device", "cpu", "--backend", "jnp",
                       "--skip_test"])

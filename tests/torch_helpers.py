@@ -399,3 +399,32 @@ class RecordSteps:
     def __call__(self, it, metrics, tr):
         self.rows.append((it, float(metrics["loss"]),
                           bool(metrics["overflow"]), tr.max_instances))
+
+
+# --- a command line in a process of its own -----------------------------------
+
+def run_module(module, argv, timeout=180):
+    """``python -m module argv`` in a process group of its own, with the
+    repo on the path; it is killed with every process it started (a
+    multi-device command starts its ranks) when it outlasts ``timeout``
+    seconds.
+    Returns its output; fails the test on a non-zero exit or the time
+    limit."""
+    import os
+    import signal
+    import subprocess
+    import sys
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [repo, os.environ.get("PYTHONPATH", "")]))
+    p = subprocess.Popen([sys.executable, "-m", module, *argv],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                         text=True, env=env, start_new_session=True)
+    try:
+        out, _ = p.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(p.pid, signal.SIGKILL)
+        out, _ = p.communicate()
+        pytest.fail(f"{module} {argv} outlasted {timeout} s:\n{out[-3000:]}")
+    assert p.returncode == 0, f"{module} {argv}:\n{out[-3000:]}"
+    return out
