@@ -151,7 +151,34 @@ Phases (any failure exits non-zero; nothing is caught):
    the gradients (a cold Adam step's first moments) and densification
    statistics within rtol 3e-3 and 1e-3 of each field's largest of the
    single-process oracles; (j.4) ``scripts.train.main`` with
-   ``--multihost`` at world size 1 on (d)'s scene, writing (d)'s files.
+   ``--multihost`` at world size 1 on (d)'s scene, writing (d)'s files;
+16. (k) the viewing half on phase (h)'s PLY of the asset at 1920x1080,
+   every ``composite_tiled`` call recorded (the ``"auto"`` paths make
+   none): (k.1) ``viz/editor.py``: the PLY in 262,144 slots with seeded
+   Adam moments, merged with itself translated (524,288 slots, the
+   moments kept), a rotated box and class 1 selected, the merged scene
+   and the box rendered (K3 and K1 once each), a copy moved and scaled,
+   the box removed, a clip saved that reloads to the same rows; (k.2)
+   ``scripts.visualize.main`` on (h)'s model directory in the rgb (a
+   box), depth (a sub-scene) and segment (the class filter, a clip, the
+   video) modes, six orbit frames each, K3 and K1 once a frame, each frame
+   bit-equal to ``frame_for_mode(renderer.render(...))`` on its camera;
+   (k.3) ``viz/render_app.RenderServer`` served on a loopback thread
+   (every client socket with a timeout): the pages byte for byte,
+   ``/api/splats`` and ``/api/viewer-info`` as ``pack_splats`` and
+   ``scene_info``, ``/api/generate-image`` for every motion key and ``m``,
+   ``,``, ``.``, ``space``, ``p``, ``b``, ``y`` (an 8-frame export), each
+   PNG the twin server's ``render_png`` after the same key, K3 and K1 once
+   a frame; then 20 warmed frames' round trip with the render,
+   ``frame_for_mode``, the overlay and the PNG encode clocked apart;
+   (k.4) ``tools/serve_asset_viewer`` on ``assets/trained_scene.ply``, one
+   frame and one ``/api/splats``; (k.5) the backends on (g)'s seeded
+   256x256 scene: ``"pallas"`` bit-equal to ``"auto"``, ``"jnp"`` to
+   ``"reference"`` (K3, no K1), ``"jnp"`` within the JAX tests'
+   tiled-against-Pallas tolerances of ``"auto"`` in the images and in one
+   ``make_train_step`` step's gradients; one ``"jnp"`` render at the asset
+   (its ms, peak memory, and the tiles over ``k_max`` where it departs
+   from ``"auto"``).
 
 Each bound (``tools/workload.py::bound_ms``) is the largest of the bytes
 over the HBM rate, the operations over the fp32 (or bf16) rate and the
@@ -2776,6 +2803,560 @@ def tree_files(root):
                   for d, _, fs in os.walk(root) for f in fs)
 
 
+# (k) the viewing half on the card: the scene editor, the visualize CLI, the
+# HTTP viewer, the bare-asset viewer and the render backends, on phase (h)'s
+# PLY of the asset at bench.py's 1920x1080 camera
+EDIT_SLOTS = 262144          # the asset's 262,046 gaussians, a power of two
+VIZ_FRAMES = 6               # orbit frames a visualize run
+VIEWER_PATH_FRAMES = 8       # the viewer's keyframe path (preview, export)
+VIEWER_TIMED = 20            # warmed /api/generate-image round trips timed
+HTTP_TIMEOUT = 120.0         # every client socket's, and the server start
+ASSET_PLY = os.path.join("assets", "trained_scene.ply")
+# the JAX tests' gradient tolerance between the tiled and Pallas paths
+# (tests/test_pallas_composite.py:99): of each field's largest
+TILED_GRAD_ATOL = 1e-3
+
+
+def run_counted(torch, fn, *args, **kw):
+    """``fn(*args, **kw)`` with the launch counts zeroed just before;
+    returns its result and the counts just after."""
+    from gsplat_tpu_torch import _kernels
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    return out, dict(_kernels.launch_counts)
+
+
+def k3_k1_once(counts, what, n=1):
+    check(counts["expand"] == n and counts["composite_forward"] == n,
+          f"{what}: K3 and K1 did not launch {n} time(s) each: "
+          f"{json.dumps(counts)}")
+
+
+@contextlib.contextmanager
+def tiled_calls():
+    """Records the device type of every ``composite_tiled`` call made
+    through ``ops/rasterize.py`` while the block runs."""
+    from gsplat_tpu_torch.ops import composite_tiled as tiled_lib
+    calls = []
+    orig = tiled_lib.composite_tiled
+
+    def recorded(means2d, *args, **kw):
+        calls.append(means2d.device.type)
+        return orig(means2d, *args, **kw)
+
+    tiled_lib.composite_tiled = recorded
+    try:
+        yield calls
+    finally:
+        tiled_lib.composite_tiled = orig
+
+
+def stats_ms(seconds):
+    import numpy as np
+    ms = np.asarray(seconds) * 1e3
+    return float(np.median(ms)), float(np.percentile(ms, 90))
+
+
+def phase_editor(torch, np, card, ply, cam, work):
+    """(k.1) ``viz/editor.py`` at the asset: its PLY in 262,144 slots with
+    seeded Adam moments; the same PLY merged translated (the model grows to
+    524,288 slots, the moments kept); a rotated box and class 1 selected;
+    the merged scene and the box rendered, K3 and K1 once each; the box's
+    class-1 gaussians copied, the copy moved and scaled, the box removed,
+    the copy saved as a clip that reloads to the same rows; the alive
+    counts what the masks say.  Returns the box's arguments."""
+    from gsplat_tpu_torch import renderer
+    from gsplat_tpu_torch.models import adam
+    from gsplat_tpu_torch.models.gaussians import GaussianModel, GaussianParams
+    from gsplat_tpu_torch.viz.editor import SceneEditor
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    gm = GaussianModel(3, num_class=NUM_CLASS, capacity=EDIT_SLOTS, device=dev)
+    gm.load_ply(ply)
+    n = gm.num_alive
+    check(gm.capacity == EDIT_SLOTS and n <= EDIT_SLOTS,
+          f"(k.1) the PLY's {n} gaussians in {gm.capacity} slots")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(21)
+    mu = GaussianParams(*[torch.randn(t.shape, generator=gen, device=dev)
+                          for t in gm.params])
+    nu = GaussianParams(*[x.abs() for x in mu])
+    gm.opt_state = adam.AdamState(
+        count=torch.tensor(5, dtype=torch.int32, device=dev), mu=mu, nu=nu)
+    ed = SceneEditor(gm)
+    t1 = time.perf_counter()
+    iid = ed.merge_ply(ply, translate=(3.0, 0.0, 0.0))
+    torch.cuda.synchronize()
+    t_merge = time.perf_counter() - t1
+    merged_slots = gm.capacity
+    check(iid == 1 and gm.capacity == 2 * EDIT_SLOTS
+          and gm.num_alive == 2 * n and int((ed.instance == 1).sum()) == n,
+          f"(k.1) merge: instance {iid}, {gm.capacity} slots, "
+          f"{gm.num_alive} alive")
+    for part, old in (("mu", mu), ("nu", nu)):
+        new = getattr(gm.opt_state, part)
+        for k, a, b in zip(GaussianParams._fields, old, new):
+            check(torch.equal(b[:EDIT_SLOTS], a)
+                  and not bool(b[EDIT_SLOTS:].any()),
+                  f"(k.1) the growth did not keep the moment {part}.{k}")
+    dst = torch.as_tensor(np.nonzero(ed.instance == 1)[0], device=dev)
+    for k in ("features_dc", "features_rest", "rotation", "opacity",
+              "segment", "scaling"):
+        check(torch.equal(getattr(gm.params, k)[dst],
+                          getattr(gm.params, k)[:n]),
+              f"(k.1) merged rows' {k} differ from the PLY's")
+    xyz = gm.params.xyz[:n]
+    center = [float(v) for v in xyz.median(dim=0).values]
+    q = torch.quantile(xyz[::16], torch.tensor([0.25, 0.75], device=dev),
+                       dim=0)
+    extents = [float(v) for v in (q[1] - q[0]) * 0.5]
+    box_args = (center, (0.0, 30.0, 0.0), extents)
+    box = ed.bbox_select(*box_args)
+    cls = ed.segment_select(1)
+    sel = box & cls
+    check(0 < sel.sum() < box.sum() < n,
+          f"(k.1) selections: box {int(box.sum())}, class 1 "
+          f"{int(cls.sum())}, both {int(sel.sum())}")
+    out, c_all = run_counted(torch, renderer.render, cam, gm, device=dev)
+    outb, c_box = run_counted(torch, renderer.render, cam, gm,
+                              bbox_mask=box, device=dev)
+    k3_k1_once(c_all, "(k.1) the merged scene's render")
+    k3_k1_once(c_box, "(k.1) the box's render")
+    for o, what in ((out, "merged"), (outb, "box")):
+        check(not bool(o["overflow"])
+              and all(bool(torch.isfinite(o[k]).all())
+                      for k in ("render", "depth", "alpha", "segment")),
+              f"(k.1) the {what} render: overflow or non-finite output")
+    check(float(outb["alpha"].sum()) < float(out["alpha"].sum()),
+          "(k.1) the box's render covers no less than the scene's")
+    iid2 = ed.copy(sel, translate=(0.0, 0.5, 0.0))
+    ed.transform_instance(iid2, translate=(0.1, 0.0, 0.0), scale=1.2)
+    check(iid2 == 2 and gm.num_alive == 2 * n + int(sel.sum()),
+          f"(k.1) copy: {gm.num_alive} alive")
+    removed = ed.remove(box)
+    check(removed == int(box.sum())
+          and gm.num_alive == 2 * n + int(sel.sum()) - removed,
+          f"(k.1) remove: {removed} removed, {gm.num_alive} alive")
+    clip_mask = ed.instance == iid2
+    clip = os.path.join(work, "k_clip.ply")
+    ed.save_clip(clip, clip_mask)
+    torch.cuda.synchronize()
+    t_edit = time.perf_counter() - t1
+    back = GaussianModel(3, num_class=NUM_CLASS, capacity=1, device=dev)
+    back.load_ply(clip)
+    keep = np.nonzero(clip_mask & ed.alive_mask())[0]
+    check(back.num_alive == len(keep) == int(sel.sum()),
+          f"(k.1) the clip holds {back.num_alive} of {len(keep)} rows")
+    kt = torch.as_tensor(keep, device=dev)
+    for k in GaussianParams._fields:
+        check(torch.equal(getattr(back.params, k)[:len(keep)],
+                          getattr(gm.params, k)[kt]),
+              f"(k.1) the clip's {k} does not reload equal")
+    print(f"editor (k.1) {W}x{H} [{card}]: {n} gaussians in {EDIT_SLOTS} "
+          f"slots, merged to {merged_slots} ({t_merge:.2f} s with the PLY "
+          f"read, moments kept); box {int(box.sum())}, class 1 "
+          f"{int(cls.sum())}, copied {int(sel.sum())} (to {gm.capacity} "
+          f"slots), removed {removed}, {gm.num_alive} alive; edits and clip "
+          f"{t_edit:.2f} s; renders of "
+          f"the merged scene and the box: launches {json.dumps(c_all)}, "
+          f"{json.dumps(c_box)}; phase {time.perf_counter() - t0:.1f} s")
+    return box_args
+
+
+def phase_visualize(torch, np, card, model_dir, ply, box_args, work):
+    """(k.2) ``scripts.visualize.main`` on phase (h)'s model directory in
+    the rgb, depth and segment modes (a rotated box; a sub-scene merged;
+    the class-1 filter, a clip and the video), ``VIZ_FRAMES`` orbit frames
+    a run with the counters zeroed just before: K3 and K1 once a frame,
+    every frame bit-equal to ``frame_for_mode`` of ``renderer.render`` on
+    the same camera and model, the frame files or video written, the clip
+    holding the class filter's gaussians."""
+    from PIL import Image
+
+    from gsplat_tpu_torch import renderer
+    from gsplat_tpu_torch.models.gaussians import GaussianModel
+    from gsplat_tpu_torch.scripts import visualize as viz_cli
+    from gsplat_tpu_torch.viz.editor import SceneEditor
+    t0 = time.perf_counter()
+    center, rot, ext = box_args
+    clip = os.path.join(work, "k_viz_clip.ply")
+    runs = (("rgb", ["--bbox", *map(str, center + ext),
+                     "--bbox_rot", *map(str, rot)]),
+            ("depth", ["--sub_scene", ply]),
+            ("segment", ["--segment_class", "1", "--save_clip", clip,
+                         "--video"]))
+    lines = []
+    for mode, extra in runs:
+        calls = []
+        orig = renderer.render
+
+        def recording(cam, gaussians, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = orig(cam, gaussians, **kw)
+            torch.cuda.synchronize()
+            calls.append((cam, gaussians, kw, time.perf_counter() - t))
+            return out
+
+        renderer.render = recording
+        try:
+            with clocked_calls(torch, viz_cli, ("frame_for_mode",)) as sec:
+                frames, counts = run_counted(torch, viz_cli.main, [
+                    "-m", model_dir, "--mode", mode, "--orbit_frames",
+                    str(VIZ_FRAMES), *extra])
+        finally:
+            renderer.render = orig
+        k3_k1_once(counts, f"(k.2) visualize --mode {mode}", VIZ_FRAMES)
+        check(len(frames) == len(calls) == VIZ_FRAMES
+              and all(f.shape == (H, W, 3) for f in frames),
+              f"(k.2) --mode {mode}: {len(frames)} frames")
+        for (cam, g, kw, _), frame in zip(calls, frames):
+            again = viz_cli.frame_for_mode(orig(cam, g, **kw), mode,
+                                           g.num_class)
+            check(np.array_equal(again, frame),
+                  f"(k.2) --mode {mode}: a frame differs from frame_for_mode"
+                  "(renderer.render) on its camera")
+        base = os.path.join(model_dir, f"viz_{mode}")
+        if mode == "segment":
+            fdir = base + "_frames"
+            check(os.path.exists(base + ".mp4")
+                  or len(os.listdir(fdir)) == VIZ_FRAMES,
+                  "(k.2) --video wrote neither the mp4 nor the frames")
+        else:
+            fdir = base
+            check(len(os.listdir(fdir)) == VIZ_FRAMES,
+                  f"(k.2) --mode {mode}: {os.listdir(fdir)}")
+        first = np.asarray(Image.open(os.path.join(fdir, "00000.png")))
+        check(np.array_equal(first, (np.clip(frames[0], 0, 1) * 255).astype(
+            np.uint8)), f"(k.2) --mode {mode}: the PNG is not the frame")
+        r_med, _ = stats_ms([c[3] for c in calls])
+        f_med, _ = stats_ms(sec["frame_for_mode"])
+        lines.append(f"{mode}: render {r_med:.3f} + frame_for_mode "
+                     f"{f_med:.3f} ms a frame (medians)")
+    gm = GaussianModel(3, num_class=NUM_CLASS, capacity=1, device="cuda")
+    gm.load_ply(ply)
+    want = int(SceneEditor(gm).segment_select(1).sum())
+    back = GaussianModel(3, num_class=NUM_CLASS, capacity=1, device="cuda")
+    back.load_ply(clip)
+    check(back.num_alive == want, f"(k.2) the clip holds {back.num_alive} "
+          f"gaussians, the class filter {want}")
+    print(f"visualize CLI (k.2) {W}x{H} [{card}]: {VIZ_FRAMES} frames a "
+          f"mode, K3 and K1 once a frame, every frame bit-equal to "
+          f"frame_for_mode(renderer.render); {'; '.join(lines)}; clip of "
+          f"{want}; phase {time.perf_counter() - t0:.1f} s")
+
+
+def http_get(port, path):
+    """(body, content type, seconds) of one loopback GET."""
+    import urllib.request
+    t = time.perf_counter()
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=HTTP_TIMEOUT) as r:
+        body = r.read()
+        kind = r.headers.get("Content-Type")
+    return body, kind, time.perf_counter() - t
+
+
+@contextlib.contextmanager
+def serving(srv):
+    """``srv.serve(port=0)`` on a thread; yields the port; shuts it down."""
+    import threading
+    t = threading.Thread(target=srv.serve, kwargs=dict(port=0), daemon=True)
+    t.start()
+    check(srv.serving.wait(HTTP_TIMEOUT), "the render server did not start")
+    try:
+        yield srv.httpd.server_address[1]
+    finally:
+        srv.httpd.shutdown()
+        t.join(HTTP_TIMEOUT)
+        check(not t.is_alive(), "the render server did not stop")
+
+
+def phase_viewer(torch, np, card, ply, cam, work):
+    """(k.3) ``viz/render_app.RenderServer`` on the asset's PLY over
+    loopback HTTP: the pages byte for byte, ``/api/splats`` as
+    ``pack_splats`` (read back to the alive rows), ``/api/viewer-info`` as
+    ``scene_info``, ``/api/generate-image`` for every motion key and ``m``,
+    ``,``, ``.``, ``space``, ``p``, ``b`` and ``y``, each PNG the one
+    ``render_png`` makes on a twin server after the same key, K3 and K1
+    once a frame (and once an exported frame); then 20 warmed frames
+    timed, the render, ``frame_for_mode``, the overlay and the PNG encode
+    clocked apart inside the handler."""
+    import io
+
+    from PIL import Image
+
+    from gsplat_tpu_torch.core.cameras import Camera
+    from gsplat_tpu_torch.models.gaussians import GaussianModel
+    from gsplat_tpu_torch.viz import render_app, webgl_viewer
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    gm = GaussianModel(3, num_class=NUM_CLASS, capacity=1, device=dev)
+    gm.load_ply(ply)
+    scene_cams = [Camera(colmap_id=i, R=np.eye(3), T=np.array(T),
+                         FoVx=cam.FoVx, FoVy=cam.FoVy,
+                         image=np.zeros((3, 8, 8), np.float32),
+                         image_name=f"v{i}", uid=i)
+                  for i, T in enumerate(TRAINER_POSES)]
+    srv, twin = (render_app.RenderServer(
+        gm, cam, scene_cams=scene_cams, n_path_frames=VIEWER_PATH_FRAMES,
+        out_dir=os.path.join(work, f"k_viewer_{name}"))
+        for name in ("served", "twin"))
+    keys = (list(render_app.RenderServer.KEY_ACTIONS)
+            + ["m", "m", "m", ",", "d", "l", ",", ".", ",", "space", "none",
+               "p", "b", "w", "y"])
+    per_frame = {}
+    with serving(srv) as port:
+        check(http_get(port, "/")[0] == render_app._CLIENT_HTML.encode(),
+              "(k.3) / is not the client page")
+        check(http_get(port, "/viewer")[0]
+              == webgl_viewer.VIEWER_HTML.encode(),
+              "(k.3) /viewer is not the WebGL page")
+        splats, kind, s_splats = http_get(port, "/api/splats")
+        check(kind == "application/octet-stream"
+              and splats == webgl_viewer.pack_splats(gm),
+              "(k.3) /api/splats is not pack_splats' buffer")
+        pos = webgl_viewer.unpack_splats(splats)[0]
+        check(np.array_equal(pos, gm.params.xyz[gm.aux.alive].cpu().numpy()),
+              "(k.3) /api/splats does not read back to the alive rows")
+        info = json.loads(http_get(port, "/api/viewer-info")[0])
+        check(info == json.loads(json.dumps(webgl_viewer.scene_info(gm,
+                                                                    cam))),
+              f"(k.3) /api/viewer-info {info}")
+        for key in keys:
+            (png, kind, _), counts = run_counted(
+                torch, http_get, port, f"/api/generate-image?type={key}")
+            exported = key == "y"
+            k3_k1_once(counts, f"(k.3) /api/generate-image?type={key}",
+                       1 + (VIEWER_PATH_FRAMES if exported else 0))
+            per_frame[key] = counts["composite_forward"]
+            twin.handle_key(key)
+            check(kind == "image/png" and png == twin.render_png(),
+                  f"(k.3) key {key!r}: the PNG differs from render_png's")
+        check(srv.mode == "rgb" and srv.overlay and srv.limit
+              and len(srv.keyframes) == 2, "(k.3) the server's state")
+        poses = np.load(os.path.join(srv.out_dir, "poses_render.npy"))
+        check(poses.shape == (VIEWER_PATH_FRAMES, 4, 4)
+              and srv.last_export is not None
+              and os.path.exists(srv.last_export[1]),
+              f"(k.3) the export: {srv.last_export}")
+        frame = np.asarray(Image.open(io.BytesIO(png)))
+        check(frame.shape == (H, W, 3), f"(k.3) a PNG of {frame.shape}")
+
+        names = ("render", "frame_for_mode", "encode_png")
+        for _ in range(2):
+            http_get(port, "/api/generate-image?type=l")
+        with clocked_calls(torch, render_app, names) as parts, \
+                clocked_calls(torch, render_app.RenderServer,
+                              ("_draw_overlay",)) as over:
+            trips = [http_get(port, "/api/generate-image?type=l")[2]
+                     for _ in range(VIEWER_TIMED)]
+        parts.update(over)
+        check(all(len(v) == VIEWER_TIMED for v in parts.values()),
+              "(k.3) clocked parts: "
+              + json.dumps({k: len(v) for k, v in parts.items()}))
+        rest = [t - sum(parts[k][i] for k in parts)
+                for i, t in enumerate(trips)]
+        timed = {"round trip": stats_ms(trips), "remainder": stats_ms(rest),
+                 **{k: stats_ms(v) for k, v in parts.items()}}
+    print(f"viewer (k.3) {W}x{H} [{card}]: pages and APIs equal; "
+          f"/api/splats {len(splats)} bytes in {s_splats * 1e3:.1f} ms; "
+          f"K1 launches per /api/generate-image {json.dumps(per_frame)}; "
+          f"{VIEWER_TIMED} warmed frames (overlay on), median and p90 ms: "
+          + "; ".join(f"{k} {m:.3f}, {p:.3f}" for k, (m, p) in timed.items())
+          + f"; phase {time.perf_counter() - t0:.1f} s")
+
+
+def phase_asset_viewer(torch, np, card):
+    """(k.4) ``tools/serve_asset_viewer`` on ``assets/trained_scene.ply``
+    at its 960x540 default: one ``/api/generate-image`` (K3 and K1 once)
+    and one ``/api/splats`` round trip."""
+    import io
+
+    from PIL import Image
+
+    from gsplat_tpu_torch.tools import serve_asset_viewer
+    from gsplat_tpu_torch.viz import webgl_viewer
+    t0 = time.perf_counter()
+    srv, _ = serve_asset_viewer.build_server([ASSET_PLY, "--port", "0"])
+    with serving(srv) as port:
+        (png, _, s_png), counts = run_counted(
+            torch, http_get, port, "/api/generate-image?type=none")
+        k3_k1_once(counts, "(k.4) the asset viewer's frame")
+        frame = np.asarray(Image.open(io.BytesIO(png)))
+        check(frame.shape == (540, 960, 3) and frame.max() > 0,
+              f"(k.4) the frame: {frame.shape}")
+        splats, _, s_splats = http_get(port, "/api/splats")
+        check(splats == webgl_viewer.pack_splats(srv.gaussians),
+              "(k.4) /api/splats is not pack_splats' buffer")
+    print(f"asset viewer (k.4) [{card}]: {ASSET_PLY}, "
+          f"{srv.gaussians.num_alive} gaussians, 960x540 frame in "
+          f"{s_png * 1e3:.1f} ms (first, launches {json.dumps(counts)}), "
+          f"/api/splats {len(splats)} bytes in {s_splats * 1e3:.1f} ms; "
+          f"phase {time.perf_counter() - t0:.1f} s")
+
+
+def phase_backends(torch, np, card, model, cam, bins, calls):
+    """(k.5) The render backends on the card.  Phase (g)'s seeded scene of
+    4,000 gaussians at 256x256 (no tile over ``k_max``): ``"jnp"`` and
+    ``"reference"`` renders bit-equal to each other, K3 and no K1; within
+    the JAX tests' tiled-against-Pallas tolerances of ``"auto"`` (K1), the
+    images and the gradients (a cold Adam step's first moments) of one
+    ``make_train_step`` step alike; ``"pallas"`` bit-equal to ``"auto"``.
+    Then one ``"jnp"`` render at the asset: its time, its peak memory, and
+    the tiles over ``k_max`` where it departs from ``"auto"``."""
+    from gsplat_tpu_torch import renderer
+    from gsplat_tpu_torch.config import OptimizationParams
+    from gsplat_tpu_torch.core.cameras import Camera
+    from gsplat_tpu_torch.models import adam
+    from gsplat_tpu_torch.models.gaussians import (GaussianParams,
+                                                   params_from_numpy)
+    from gsplat_tpu_torch.ops.preprocess import TILE_X, TILE_Y
+    from gsplat_tpu_torch.ops.rasterize import RasterizeConfig
+    from gsplat_tpu_torch.train import trainer as trainer_lib
+    from gsplat_tpu_torch.train.schedules import make_lr_fn
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    n, S = TILE_GAUSSIANS, TILE_SIZE
+    rng = np.random.default_rng(16)
+    fields = dict(
+        xyz=rng.standard_normal((n, 3)) * 1.2,
+        features_dc=rng.standard_normal((n, 1, 3)) * 0.8,
+        features_rest=rng.standard_normal((n, 15, 3)) * 0.2,
+        scaling=rng.standard_normal((n, 3)) * 0.5 - 2.5,
+        rotation=rng.standard_normal((n, 4)),
+        opacity=rng.standard_normal((n, 1)) * 1.5,
+        segment=rng.standard_normal((n, NUM_CLASS)))
+    small = params_from_numpy(fields, device=dev)
+    scam = Camera(colmap_id=0, R=np.eye(3), T=np.array([0.0, 0.0, 4.0]),
+                  FoVx=math.radians(60.0), FoVy=math.radians(60.0),
+                  image=rng.uniform(size=(3, S, S)).astype(np.float32),
+                  image_name="backends", uid=0)
+    backends = ("auto", "pallas", "jnp", "reference")
+    outs, counts = {}, {}
+    for b in backends:
+        before = len(calls)
+        outs[b], counts[b] = run_counted(
+            torch, renderer.render, scam, small, backend=b,
+            max_instances=1 << 19, device=dev)
+        tiled = b in ("jnp", "reference")
+        check(len(calls) - before == (1 if tiled else 0),
+              f"(k.5) backend {b!r}: composite_tiled ran "
+              f"{len(calls) - before} times")
+        check(counts[b]["expand"] == 1
+              and counts[b]["composite_forward"] == (0 if tiled else 1),
+              f"(k.5) backend {b!r}: launches {json.dumps(counts[b])}")
+    keys = ("render", "depth_raw", "alpha", "segment")
+    for a, b in (("pallas", "auto"), ("reference", "jnp")):
+        for k in keys:
+            check(torch.equal(outs[a][k], outs[b][k]),
+                  f"(k.5) {a!r} and {b!r} differ in {k}")
+    img_err = {}
+    for k in keys:
+        tol = ATOL["depth"] if k == "depth_raw" else ATOL[
+            "rgb" if k == "render" else k]
+        img_err[k] = float((outs["jnp"][k] - outs["auto"][k]).abs().max())
+        check(img_err[k] <= tol, f"(k.5) 'jnp' {k} is {img_err[k]} from "
+              f"'auto' (tolerance {tol})")
+
+    opt = OptimizationParams()
+    lrs = make_lr_fn(opt, 1.0)(100)
+    batch = trainer_lib.camera_batch(scam, device=dev)
+    mus, step_counts = {}, {}
+    for b in ("auto", "jnp", "reference"):
+        cfg = RasterizeConfig(width=S, height=S, num_class=NUM_CLASS,
+                              max_instances=1 << 19, backend=b)
+        step = trainer_lib.make_train_step(cfg, opt, 3, None, True,
+                                           np.zeros(3, np.float32),
+                                           device=dev)
+        m = params_from_numpy(fields, device=dev)
+        (p1, st, _, met), step_counts[b] = run_counted(
+            torch, step, m.params, adam.init(m.params), m.aux, batch, lrs)
+        check(all(bool(torch.isfinite(x).all()) for x in p1)
+              and math.isfinite(float(met["loss"])),
+              f"(k.5) the {b!r} step: non-finite state or loss")
+        mus[b] = st.mu
+    check(step_counts["auto"]["composite_backward"] == 1
+          and step_counts["jnp"]["composite_forward"] == 0
+          and step_counts["jnp"]["composite_backward"] == 0
+          and step_counts["jnp"]["expand"] == 1,
+          f"(k.5) step launches {json.dumps(step_counts)}")
+    grad_err = {}
+    for b in ("jnp", "reference"):
+        for k, x, y in zip(GaussianParams._fields, mus[b], mus["auto"]):
+            scale = float(y.abs().max()) + 1e-12
+            e = float((x - y).abs().max()) / scale
+            grad_err[k] = max(grad_err.get(k, 0.0), e)
+            check(e <= TILED_GRAD_ATOL, f"(k.5) the {b!r} step's gradient "
+                  f"of {k} is {e:.3g} of its largest from 'auto''s")
+    grads_equal = all(torch.equal(x, y) for x, y in zip(
+        mus["jnp"], mus["reference"]))
+
+    # the asset at 1080p through the tiled path
+    gx = (W + TILE_X - 1) // TILE_X
+    over = (bins.tile_count > 1024).nonzero()[:, 0]
+    auto, _ = run_counted(torch, renderer.render, cam, model, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    jnp_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        big, c_big = run_counted(torch, renderer.render, cam, model,
+                                 backend="jnp", device=dev)
+        jnp_ms.append((time.perf_counter() - t) * 1e3)
+    peak = torch.cuda.max_memory_allocated() - base_mem
+    check(c_big["expand"] == 1 and c_big["composite_forward"] == 0
+          and not bool(big["overflow"]),
+          f"(k.5) the 1080p 'jnp' render: {json.dumps(c_big)}")
+    cut = torch.zeros(H, W, dtype=torch.bool, device=dev)
+    for t in over.tolist():
+        ty, tx = divmod(t, gx)
+        cut[ty * TILE_Y:(ty + 1) * TILE_Y,
+            tx * TILE_X:(tx + 1) * TILE_X] = True
+    diff = (big["render"] - auto["render"]).abs().amax(0)
+    out_err = float(diff[~cut].max())
+    in_err = float(diff[cut].max()) if len(over) else 0.0
+    check(out_err <= ATOL["rgb"], f"(k.5) the 1080p 'jnp' render is "
+          f"{out_err} from 'auto' outside the cut tiles")
+    print(f"backends (k.5) [{card}]: {S}x{S}, {n} gaussians: 'pallas' = "
+          f"'auto' and 'reference' = 'jnp' bit for bit; 'jnp' against "
+          f"'auto' max |diff| {json.dumps(img_err)}; step gradients "
+          f"(first moments) within {json.dumps(grad_err)} of each field's "
+          f"largest, 'jnp' and 'reference' bit-equal: {grads_equal}; "
+          f"launches {json.dumps(counts['jnp'])} a tiled render, "
+          f"{json.dumps(step_counts['jnp'])} a tiled step; {W}x{H} asset "
+          f"'jnp': {min(jnp_ms):.2f} to {max(jnp_ms):.2f} ms a render, peak "
+          f"{peak / 2**20:.1f} MiB over the resident {base_mem / 2**20:.1f}, "
+          f"{len(over)} tiles over k_max = 1024 (largest "
+          f"{int(bins.tile_count.max())} instances): max |rgb diff| from "
+          f"'auto' {in_err:.4g} inside them, {out_err:.3g} outside; "
+          f"composite_tiled ran on {sorted(set(calls))}; phase "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+def phase_viewing(torch, np, card, model, cam, bins, work):
+    """(k) the viewing paths on the card, in order (k.1) to (k.5), with
+    every ``composite_tiled`` call recorded: the ``"auto"`` paths make
+    none."""
+    t0 = time.perf_counter()
+    model_dir = os.path.join(work, "render_model")
+    ply = os.path.join(model_dir, "point_cloud", "iteration_1",
+                       "point_cloud.ply")
+    with tiled_calls() as calls:
+        box_args = phase_editor(torch, np, card, ply, cam, work)
+        phase_visualize(torch, np, card, model_dir, ply, box_args, work)
+        phase_viewer(torch, np, card, ply, cam, work)
+        phase_asset_viewer(torch, np, card)
+        check(not calls, f"(k) 'auto' ran composite_tiled {len(calls)} "
+              "times")
+        phase_backends(torch, np, card, model, cam, bins, calls)
+        check(set(calls) == {"cuda"}, f"(k) composite_tiled on {calls}")
+    print(f"viewing (k): phase {time.perf_counter() - t0:.1f} s")
+
+
 def main():
     import numpy as np
     import torch
@@ -3101,6 +3682,9 @@ def main():
     phase_par_ranks(torch, np, card, model, par_ranks, par_work)
     phase_par_cli(torch, np, card, work, cli_files)
     print(f"par (j): phase {time.perf_counter() - t0:.1f} s")
+
+    # ---- 16. (k) the viewers, the editor and the render backends ----------
+    phase_viewing(torch, np, card, model, cam, bins, work)
 
     # bounds: each input read once, each output written once
     k3_bound, k3_by, k3_bytes, k3_ops = wl.expand_bound(S, cap)

@@ -12,7 +12,8 @@ Ported so far (the serving path, ``renderer.render``; the training step,
 ``train.trainer.make_train_step``; the training command line,
 ``scripts/train.py`` over ``train.trainer.Trainer``, with the appearance
 embedding and the live-viewer socket; the render and evaluation command
-lines; and training and rendering over several devices):
+lines; training and rendering over several devices; and the viewers, the
+scene editor and the visualize command line):
 
 - ``core``    : cameras (numpy), quaternion/covariance math, SH evaluation
 - ``data``    : PLY reading and writing, COLMAP parsers, the COLMAP /
@@ -33,13 +34,16 @@ lines; and training and rendering over several devices):
                 tile-sharded render
 - ``config``  : the argparse parameter groups
 - ``scripts`` : ``train``, ``train_segment``, ``render``, ``metrics``,
-                ``full_eval``
+                ``full_eval``, ``visualize``
 - ``viz``     : camera paths (``camera_trajectory``), videos, LPIPS, the
-                SIBR viewer socket (``network_gui``)
+                SIBR viewer socket (``network_gui``), the scene editor
+                (``editor``), the HTTP viewer (``render_app``) and its
+                WebGL2 page and splat buffer (``webgl_viewer``)
 - ``utils``   : ``safe_state``, ``mkdir_p``, ``searchForMaxIteration``
 - ``tools``   : the kernel probes (P1 to P4: K1 and K2 under knockouts,
                 K1's loads against its math, an in-kernel gather, f32
-                against bf16x2), ``python -m gsplat_tpu_torch.tools.bench_*``
+                against bf16x2), ``python -m gsplat_tpu_torch.tools.bench_*``;
+                the HTTP viewer on a bare asset (``serve_asset_viewer``)
 
 Entry points run on the card (``device="cuda"``) unless the caller asks for
 the CPU, where every kernel wrapper uses its plain PyTorch version.

@@ -6,7 +6,7 @@ Behavioral spec: reference arguments/__init__.py:19-141 (ParamGroup, leading
 get_combined_args cfg_args merge).  The same flags and defaults as the JAX
 package, with one stated difference: ``ModelParams.data_device`` defaults
 to ``"cuda"`` (the JAX package's ``"tpu"``); ``"cpu"`` runs every kernel's
-plain version on the CPU.  ``backend`` accepts only ``"auto"``.
+plain version on the CPU.
 """
 from __future__ import annotations
 
@@ -112,13 +112,13 @@ class OptimizationParams(ParamGroup):
 
 class PerformanceParams(ParamGroup):
     """Sizing/backend knobs of the JAX package (no reference analogue).
-    A ``backend`` other than ``auto``, which the port does not have yet, is
-    accepted here and refused by the ``Trainer``."""
+    ``backend``: ``auto`` or ``pallas`` (kernels K1/K2), ``jnp`` or
+    ``reference`` (the plain-torch tiled compositor)."""
 
     def __init__(self, parser):
         self.capacity = 0            # gaussian capacity (0 = auto from init size)
         self.max_instances = 0       # tile-instance capacity (0 = auto)
-        self.backend = "auto"        # the port has one: kernels K1/K2
+        self.backend = "auto"        # auto | pallas | jnp | reference
         self.data_parallel = 1       # cameras per step = ranks (-1: all)
         self.tile_parallel = 1       # tile-row slices per camera; with
                                      # data_parallel an (M, N) mesh

@@ -42,6 +42,10 @@ C4 = (
 )
 
 
+def num_sh_bases(deg: int) -> int:
+    return (deg + 1) ** 2
+
+
 def eval_sh(deg: int, sh, dirs):
     """SH polynomial at unit directions: sh [..., K, C] with
     K >= (deg+1)^2, dirs [..., 3] -> [..., C]."""

@@ -41,6 +41,11 @@ def quat_to_rotmat(q):
     return torch.stack([torch.stack(row, dim=-1) for row in R], dim=-2)
 
 
+def build_scaling_rotation(s, q):
+    """L = R @ diag(s), batched (utils/general_utils.py:105-118)."""
+    return quat_to_rotmat(q) * s[..., None, :]
+
+
 def covariance_from_scaling_rotation(scaling, scaling_modifier, rotation):
     """World-space 3D covariance Sigma = R S S^T R^T, packed as the 6
     upper-triangular entries [xx, xy, xz, yy, yz, zz]."""
@@ -54,6 +59,22 @@ def covariance_from_scaling_rotation(scaling, scaling_modifier, rotation):
     return torch.stack(
         [sigma(0, 0), sigma(0, 1), sigma(0, 2),
          sigma(1, 1), sigma(1, 2), sigma(2, 2)], dim=-1)
+
+
+def strip_symmetric(S):
+    """[..., 3, 3] symmetric -> packed [..., 6] (xx, xy, xz, yy, yz, zz)
+    (utils/general_utils.py:72-84)."""
+    return torch.stack(
+        [S[..., 0, 0], S[..., 0, 1], S[..., 0, 2],
+         S[..., 1, 1], S[..., 1, 2], S[..., 2, 2]], dim=-1)
+
+
+def unpack_symmetric(c6):
+    """Packed [..., 6] -> full [..., 3, 3] symmetric matrix."""
+    xx, xy, xz, yy, yz, zz = (c6[..., i] for i in range(6))
+    return torch.stack([torch.stack([xx, xy, xz], dim=-1),
+                        torch.stack([xy, yy, yz], dim=-1),
+                        torch.stack([xz, yz, zz], dim=-1)], dim=-2)
 
 
 # --- parameter activations (scene/gaussian_model.py:27-43) -------------------

@@ -2,16 +2,28 @@
 
 PyTorch port of ``gsplat_tpu/ops/rasterize.py``.  Channels are composited in
 one pass: rgb (3) + depth (1) [+ segments (S)] + weight (1), or rgb alone
-under ``render_only``.  Binning pads every tile's segment to 128 instances
-as the JAX Pallas path does, so both packages bin identically.
+under ``render_only``.  Both packages bin identically for each backend.
 
-Gradients: preprocess and the background term are plain autograd; the
-composite is one ``torch.autograd.Function`` (forward kernel K1, backward
-kernel K2, then the gather's adjoint with the segment-sum kernel K4).
-Binning is index bookkeeping and sees detached inputs.  ``grad_precision``,
-``mxu_power`` and ``feat_precision`` select the forms of K1 and K2 and of
-the reduction around K4 as in the JAX package's Pallas path
-(``ops/composite_cuda.py``).
+Backends, wired as the JAX package wires them:
+
+- ``"auto"`` and ``"pallas"``: binning pads every tile to 128 instances and
+  the composite is one ``torch.autograd.Function`` (forward kernel K1,
+  backward kernel K2, then the gather's adjoint with the segment-sum kernel
+  K4).  ``grad_precision``, ``mxu_power`` and ``feat_precision`` select the
+  forms of K1 and K2 and of the reduction around K4 as in the JAX
+  package's Pallas path (``ops/composite_cuda.py``).  On a CUDA tensor the
+  kernels launch or raise; on a CPU tensor their plain versions run.  One
+  divergence: on the CPU the JAX package's ``"auto"`` becomes ``"jnp"``
+  (its ``rasterize.py:79``), the port's is K1's plain version.
+- ``"jnp"`` and ``"reference"``: binning with no pads and the plain-torch
+  tiled compositor (``ops/composite_tiled.py``, autograd), each tile's list
+  cut at ``k_max``, ``tile_batch`` tiles at a time.  The JAX package sends
+  both names down that one path (its ``rasterize.py:130, 151-170``); the
+  precision and power options do not apply there.  A caller asks for them
+  by name: ``"auto"`` never falls back to them.
+
+Preprocess and the background term are plain autograd.  Binning is index
+bookkeeping and sees detached inputs.
 
 ``means2d_offset`` is the gradient tap that stands in for the reference's
 ``screenspace_points``: pass zeros [P,2] that require grad; its gradient is
@@ -26,11 +38,14 @@ import torch
 
 from gsplat_tpu_torch.device import check_on, resolve_device
 from gsplat_tpu_torch.ops import binning as binning_lib
+from gsplat_tpu_torch.ops import composite_tiled as tiled_lib
 from gsplat_tpu_torch.ops import preprocess as pre_lib
 from gsplat_tpu_torch.ops.composite_cuda import composite_cuda
 from gsplat_tpu_torch.ops.preprocess import TILE_X, TILE_Y
 
 ALIGN = 128   # per-tile segment alignment (the JAX Pallas path's CHUNK)
+TILED_BACKENDS = ("jnp", "reference")            # ops/composite_tiled.py
+BACKENDS = ("auto", "pallas") + TILED_BACKENDS   # the first two: K1
 
 
 @dataclass(frozen=True)
@@ -41,10 +56,11 @@ class RasterizeConfig:
     sh_degree: int = 3
     num_class: int = 0              # segment channels composited (0 = off)
     max_instances: int = 1 << 20    # tile-instance capacity (binning)
-    k_max: int = 1024               # JAX jnp path only; unused here
-    tile_batch: int = 32            # JAX jnp path only; unused here
-    backend: str = "auto"           # only "auto": kernel K1 (its plain
-                                    # version on CPU tensors)
+    k_max: int = 1024               # per-tile instance cap (tiled path)
+    tile_batch: int = 32            # tiles per step (tiled path)
+    backend: str = "auto"           # "auto" | "pallas": kernel K1 (its
+                                    # plain version on CPU tensors);
+                                    # "jnp" | "reference": composite_tiled
     grad_precision: str = "f32"     # "bf16": per-instance grad rows
                                     # rounded to bf16 before the f32 sum
     cull: str = "none"              # "exact": drop instances whose ellipse
@@ -68,9 +84,9 @@ class RasterizeConfig:
 
 
 def _check_config(config: RasterizeConfig):
-    if config.backend != "auto":
-        raise ValueError(f"backend={config.backend!r}: the port has one "
-                         "compositor, kernel K1 (backend='auto')")
+    if config.backend not in BACKENDS:
+        raise ValueError(f"backend={config.backend!r}: expected one of "
+                         f"{BACKENDS}")
     for name in ("grad_precision", "feat_precision"):
         value = getattr(config, name)
         if value not in ("f32", "bf16"):
@@ -134,11 +150,14 @@ def rasterize(
     if means2d_offset is not None:
         pre = pre._replace(means2d=pre.means2d + means2d_offset)
 
-    # binning is index bookkeeping: no gradient flows through it
+    # binning is index bookkeeping: no gradient flows through it; the
+    # tiled path takes no pads
+    tiled = config.backend in TILED_BACKENDS
     bins = binning_lib.bin_gaussians(
         pre_lib.PreprocessOut(*[x.detach() for x in pre]),
-        config.grid_x, config.grid_y, config.max_instances, align=ALIGN,
-        cull=config.cull, max_rows=config.max_rows)
+        config.grid_x, config.grid_y, config.max_instances,
+        align=1 if tiled else ALIGN, cull=config.cull,
+        max_rows=config.max_rows)
 
     if config.render_only:
         feats = pre.rgb
@@ -153,13 +172,20 @@ def rasterize(
         feats.append(torch.ones_like(pre.depths[:, None]))
         feats = torch.cat(feats, dim=1)
 
-    chw, T_final, overflow = composite_cuda(
-        pre.means2d, pre.conic, pre.opacity, feats, bins,
-        config.width, config.height,
-        const_last_feat=not config.render_only,
-        grad_precision=config.grad_precision,
-        mxu_power=config.mxu_power,
-        feat_precision=config.feat_precision)
+    if tiled:
+        img, T_final = tiled_lib.composite_tiled(
+            pre.means2d, pre.conic, pre.opacity, feats, bins,
+            config.width, config.height, k_max=config.k_max,
+            tile_batch=config.tile_batch)
+        chw, overflow = img.permute(2, 0, 1), bins.overflow
+    else:
+        chw, T_final, overflow = composite_cuda(
+            pre.means2d, pre.conic, pre.opacity, feats, bins,
+            config.width, config.height,
+            const_last_feat=not config.render_only,
+            grad_precision=config.grad_precision,
+            mxu_power=config.mxu_power,
+            feat_precision=config.feat_precision)
 
     render = chw[0:3] + T_final[None] * on_dev(bg)[:, None, None]
     out = {

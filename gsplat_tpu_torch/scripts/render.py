@@ -16,8 +16,9 @@ or replayed camera path, and a set video with ``--set_video``.
 over N devices, one process each (``parallel/tile_parallel.py``, bit-equal
 to the single-device render): started alone the command starts N local
 ranks, under ``torchrun`` it joins the launched group, and rank 0 writes
-every file.  Not ported yet, and refused: a ``--backend`` other than
-``auto`` raises in ``rasterize`` (ROADMAP Queue 1 item 9).
+every file.  ``--backend``: ``auto`` (the default) or ``pallas`` composite
+with kernel K1, ``jnp`` or ``reference`` with the plain-torch tiled
+compositor (``ops/composite_tiled.py``).
 """
 from __future__ import annotations
 

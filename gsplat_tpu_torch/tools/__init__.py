@@ -20,6 +20,8 @@ kernel templates.
 - ``probes``    : the wrappers, launch counted, and the plain versions
 - ``bench_*``   : one entry module per JAX tool, ``python -m
                   gsplat_tpu_torch.tools.<name>`` on the card
+- ``serve_asset_viewer``: not a probe; the HTTP viewer on a bare PLY or
+                  NPZ asset (the JAX package's ``tools/serve_asset_viewer.py``)
 
 The entry modules measure, so they run on the card only; the wrappers, like
 every kernel wrapper of the port, take their plain versions for CPU tensors.

@@ -34,7 +34,8 @@ from gsplat_tpu_torch.models.densify import (add_densification_stats,
                                              densify_and_prune, reset_opacity)
 from gsplat_tpu_torch.models.gaussians import GaussianModel, GaussianParams
 from gsplat_tpu_torch.ops import preprocess as pre_lib
-from gsplat_tpu_torch.ops.rasterize import RasterizeConfig, rasterize
+from gsplat_tpu_torch.ops.rasterize import (BACKENDS, RasterizeConfig,
+                                            rasterize)
 from gsplat_tpu_torch.train import losses as L
 from gsplat_tpu_torch.train.schedules import make_lr_fn
 
@@ -369,9 +370,9 @@ class Trainer:
             if value not in ("f32", "bf16"):
                 raise ValueError(f"{name} must be 'f32' or 'bf16', got "
                                  f"{value!r}")
-        if backend != "auto":
-            raise ValueError(f"backend={backend!r}: the port has one "
-                             "compositor (backend='auto')")
+        if backend not in BACKENDS:
+            raise ValueError(f"backend={backend!r}: expected one of "
+                             f"{BACKENDS}")
         if cull not in ("none", "exact"):
             raise ValueError(f"cull must be 'none' or 'exact', got {cull!r}")
         self.model = model

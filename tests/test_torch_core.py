@@ -146,6 +146,11 @@ def test_import_is_jax_free():
             "gsplat_tpu_torch.utils.general, gsplat_tpu_torch.viz.lpips, "
             "gsplat_tpu_torch.viz.video, gsplat_tpu_torch.viz.camera_trajectory, "
             "gsplat_tpu_torch.viz.network_gui, "
+            "gsplat_tpu_torch.viz.webgl_viewer, gsplat_tpu_torch.viz.editor, "
+            "gsplat_tpu_torch.viz.render_app, "
+            "gsplat_tpu_torch.scripts.visualize, "
+            "gsplat_tpu_torch.tools.serve_asset_viewer, "
+            "gsplat_tpu_torch.ops.composite_tiled, "
             "gsplat_tpu_torch.models.appearance, gsplat_tpu_torch.models.pose, "
             "gsplat_tpu_torch.parallel, gsplat_tpu_torch.parallel.multihost, "
             "gsplat_tpu_torch.parallel.data_parallel, "

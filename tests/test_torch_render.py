@@ -136,7 +136,15 @@ def test_forward_only_and_unported_options_raise():
                               **{field: "fp16"})
         with pytest.raises(ValueError, match=field):
             _rasterize_cpu(bad)
-    for backend in ("cuda", "pallas"):
+    # "pallas" is "auto"'s path (tests/test_torch_backends.py holds "jnp"
+    # and "reference" to the JAX package); an unknown backend is refused
+    want = _rasterize_cpu(cfg)
+    got = _rasterize_cpu(RasterizeConfig(width=32, height=32,
+                                         max_instances=1 << 12,
+                                         backend="pallas"))
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    for backend in ("cuda", "tpu"):
         bad = RasterizeConfig(width=32, height=32, max_instances=1 << 12,
                               backend=backend)
         with pytest.raises(ValueError, match="backend"):

@@ -268,7 +268,8 @@ def test_full_eval_train_segment_and_refusals(rendered, monkeypatch):
     """(d) ``full_eval``'s commands, with ``run`` recording them, equal
     JAX's with the package swapped under every combination of the
     ``--skip_*`` flags; ``train_segment`` hands the training CLI JAX's arguments; the
-    render CLI refuses another backend, renders with the pipe's debug
+    render CLI refuses an unknown backend, renders with ``--backend jnp``
+    within one level of JAX's ``jnp`` render, renders with the pipe's debug
     flags, which reach ``renderer.render``, within one level of JAX's
     default render, and with ``--tile_parallel 2`` (two local ranks) the
     single-device PNGs bit for bit; a height that does not split into
@@ -325,5 +326,14 @@ def test_full_eval_train_segment_and_refusals(rendered, monkeypatch):
     with pytest.raises(ValueError, match="whole 32-px tile rows"):
         trender.make_tile_renderer(3, one, None, np.zeros(3), "auto", 3)
     with pytest.raises(ValueError, match="backend"):
-        trender.main(["-m", d2, "--data_device", "cpu", "--backend", "jnp",
+        trender.main(["-m", d2, "--data_device", "cpu", "--backend", "cuda",
                       "--skip_test"])
+    # the JAX CLI rendered d1 with --backend jnp: the port's jnp backend
+    # (the plain-torch tiled compositor) within one level of it
+    d4 = d2 + "_jnp"
+    shutil.copytree(d2, d4)
+    trender.main(["-m", d4, "--data_device", "cpu", "--backend", "jnp",
+                  "--skip_train"])
+    f = os.path.join("test", "ours_1", "renders", "00000.png")
+    assert np.abs(_png(os.path.join(d4, f))
+                  - _png(os.path.join(d1, f))).max() <= 1
