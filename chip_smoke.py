@@ -178,7 +178,29 @@ Phases (any failure exits non-zero; nothing is caught):
    tiled-against-Pallas tolerances of ``"auto"`` in the images and in one
    ``make_train_step`` step's gradients; one ``"jnp"`` render at the asset
    (its ms, peak memory, and the tiles over ``k_max`` where it departs
-   from ``"auto"``).
+   from ``"auto"``);
+17. (l) the data-prep half, the native I/O and DPT on (h)'s scene and PLY:
+   (l.1) (h)'s five camera poses as SLAM poses through
+   ``data/converters.slam_to_nerf`` (the poses of (h)'s transforms.json,
+   float32-rounded), ``compute_block_seq``, ``split_blocks`` and
+   ``nerf_to_poses_bounds``, then ``scripts.convert.main`` with a stub
+   colmap written by the phase (the card's machine has none): the four
+   command lines received, the ``--resize`` pyramid of the five 1080p
+   images timed; (l.2) the native library loads, (h)'s PLY of the asset
+   through ``read_ply``'s native path (counted) equal to the pure-python
+   read, a ``points3D.bin`` of the asset's points written in COLMAP's
+   binary layout and read both ways, each path's ms; (l.3) the published
+   DPT-Hybrid (122,376,449 parameters) and DPT-Large at 384x384 and 672x384
+   (the minimal resize of a 1080p frame) and the hybrid's 150-class
+   segmentation head, from a seeded ``torch.Generator``: the card's output
+   within 1e-4 of the largest magnitude of the CPU's, ms per image, device
+   busy and peak memory; (l.4) ``scripts.run_monodepth.main`` into the
+   scene's ``depth/`` (16-bit 1920x1080 PNGs), ``run_segmentation.main``
+   at 150 classes (one view, timed) and at NUM_CLASS into ``segment/``,
+   then ``scripts.train.main`` on the scene with ``--using_depth
+   --depth_loss_choice L1_loss --using_seg`` for 10 iterations at 1080p
+   with the counters zeroed just before: K3, K1, K2 and K4 once an
+   iteration, the loss finite, the files written.
 
 Each bound (``tools/workload.py::bound_ms``) is the largest of the bytes
 over the HBM rate, the operations over the fp32 (or bf16) rate and the
@@ -3357,6 +3379,403 @@ def phase_viewing(torch, np, card, model, cam, bins, work):
     print(f"viewing (k): phase {time.perf_counter() - t0:.1f} s")
 
 
+# (l) the data-prep half on the host, the native I/O, DPT at full width on
+# the card, and the DPT command lines feeding a training run: phase (h)'s
+# scene (five 1920x1080 views of the asset) and PLY
+DPT_MODELS = ("dpt_hybrid", "dpt_large")
+DPT_SEGMENT_CLASSES = 150    # ADE20k, the published segmentation head
+DPT_WARM, DPT_TIMED = 2, 5
+# the card's output against the CPU's, of the CPU output's largest magnitude
+DPT_REL_TOL = 1e-4
+PREP_TRAIN_ITERS = 10
+SEG150_VIEWS = 1
+PREP_KERNELS = ("expand", "composite_forward_packed_quad",
+                "composite_backward_packed_quad", "segment_sum")
+# a stand-in for colmap (the card's machine has none): logs its arguments
+# and writes what the converter reads next
+COLMAP_STUB = r'''import os, shutil, sys
+args = sys.argv[1:]
+with open(os.environ["COLMAP_STUB_LOG"], "a") as f:
+    f.write(" ".join(args) + "\n")
+opt = dict(zip(args[1::2], args[2::2]))
+if args[0] == "mapper":
+    os.makedirs(os.path.join(opt["--output_path"], "0"), exist_ok=True)
+if args[0] == "image_undistorter":
+    out = opt["--output_path"]
+    os.makedirs(os.path.join(out, "sparse"), exist_ok=True)
+    for name in ("cameras.bin", "images.bin", "points3D.bin"):
+        with open(os.path.join(out, "sparse", name), "wb") as f:
+            f.write(name.encode())
+    shutil.copytree(opt["--image_path"], os.path.join(out, "images"),
+                    dirs_exist_ok=True)
+'''
+
+
+def phase_prep_host(torch, np, card, scene_dir, work):
+    """(l.1) The data-prep half on the host: (h)'s five camera poses as SLAM
+    poses through ``slam_to_nerf`` (its transforms.json holds (h)'s poses
+    after the axis flip and back, float32-rounded as the converter reads
+    them), ``compute_block_seq``, ``split_blocks`` and
+    ``nerf_to_poses_bounds``; ``scripts.convert.main`` with a stub colmap
+    (the four command lines received) and the ``--resize`` pyramid of the
+    five 1080p images, timed."""
+    from gsplat_tpu_torch.data import converters
+    from gsplat_tpu_torch.scripts import convert as convert_cli
+    t0 = time.perf_counter()
+    with open(os.path.join(scene_dir, "transforms.json")) as f:
+        frames = json.load(f)["frames"]
+    root = os.path.join(work, "slam")
+    os.makedirs(os.path.join(root, "images"))
+    lines = []
+    for i, fr in enumerate(frames):
+        c2w = np.array(fr["transform_matrix"])
+        c2w[:3, 1:3] *= -1         # back to the SLAM (COLMAP) axes
+        lines.append(f"{i} " + " ".join(repr(float(v))
+                                        for v in c2w[:3].ravel()))
+        shutil.copy(os.path.join(scene_dir, fr["file_path"]),
+                    os.path.join(root, "images", f"{i}.png"))
+    for name in ("KeyFramePose.txt", "Pose.txt"):
+        with open(os.path.join(root, name), "w") as f:
+            f.write("\n".join(lines) + "\n")
+    intr = dict(fl_x=1000.0, fl_y=1000.0, cx=W / 2, cy=H / 2, w=W, h=H)
+    tf = converters.slam_to_nerf(root, intr, image_ext="png")
+    with open(tf) as f:
+        got = json.load(f)["frames"]
+    check(len(got) == len(frames) and all(
+        np.array_equal(np.array(g["transform_matrix"]),
+                       np.array(fr["transform_matrix"], np.float32))
+        for g, fr in zip(got, frames)),
+        "(l.1) slam_to_nerf's poses differ from (h)'s")
+    blocks = converters.compute_block_seq(root, K=0.1)
+    outs = converters.split_blocks(root, intr, blocks, image_ext="png")
+    n_block_frames = 0
+    for out in outs:
+        with open(out) as f:
+            n_block_frames += len(json.load(f)["frames"])
+    pb = np.load(converters.nerf_to_poses_bounds(tf))
+    check(pb.shape == (len(frames), 17) and bool(np.all(
+        pb[:, [4, 9, 14]] == [H, W, 1000.0])), f"(l.1) poses_bounds {pb.shape}")
+
+    src = os.path.join(work, "convert_scene")
+    os.makedirs(os.path.join(src, "input"))
+    for fr in frames:
+        shutil.copy(os.path.join(scene_dir, fr["file_path"]),
+                    os.path.join(src, "input"))
+    stub = os.path.join(work, "colmap_stub")
+    with open(stub, "w") as f:
+        f.write(f"#!{sys.executable}\n" + COLMAP_STUB)
+    os.chmod(stub, 0o755)
+    log = os.path.join(work, "colmap_stub.log")
+    os.environ["COLMAP_STUB_LOG"] = log
+    try:
+        t1 = time.perf_counter()
+        with clocked_calls(torch, convert_cli, ("run",)) as seconds:
+            convert_cli.main(["-s", src, "--colmap_executable", stub,
+                              "--resize"])
+        t_convert = time.perf_counter() - t1
+    finally:
+        del os.environ["COLMAP_STUB_LOG"]
+    with open(log) as f:
+        said = [ln.split()[0] for ln in f]
+    check(said == ["feature_extractor", "exhaustive_matcher", "mapper",
+                   "image_undistorter"], f"(l.1) colmap received {said}")
+    for scale in (2, 4, 8):
+        d = os.path.join(src, f"images_{scale}")
+        check(len(os.listdir(d)) == len(frames), f"(l.1) {d}")
+    from PIL import Image
+    with Image.open(os.path.join(src, "images_8",
+                                 os.path.basename(frames[0]["file_path"]))) \
+            as im:
+        check(im.size == (W // 8, H // 8), f"(l.1) images_8 {im.size}")
+    t_cmds = sum(seconds["run"])
+    print(f"prep host (l.1) [{card}]: slam_to_nerf of {len(frames)} poses "
+          f"equal to (h)'s, {len(blocks)} blocks ({n_block_frames} frames "
+          f"in split_blocks), poses_bounds {pb.shape}; convert CLI "
+          f"{t_convert:.3f} s, of it the four stub commands "
+          f"{t_cmds:.3f} s and the --resize pyramid of {len(frames)} "
+          f"{W}x{H} images (and the moves) {t_convert - t_cmds:.3f} s; "
+          f"phase {time.perf_counter() - t0:.1f} s")
+
+
+def write_points3d_bin(np, path, xyz, rgb, err):
+    """COLMAP's binary points3D layout (tests/test_colmap_native.py's
+    fixture, written in bulk): id, xyz, rgb, error, a track of one
+    (image, point2D) pair."""
+    rec = np.zeros(len(xyz), np.dtype([
+        ("id", "<i8"), ("xyz", "<f8", 3), ("rgb", "u1", 3), ("err", "<f8"),
+        ("tlen", "<u8"), ("track", "<i4", 2)]))
+    rec["id"] = np.arange(len(xyz))
+    rec["xyz"], rec["rgb"], rec["err"] = xyz, rgb, err
+    rec["tlen"] = 1
+    rec["track"][:, 1] = np.arange(len(xyz))
+    with open(path, "wb") as f:
+        f.write(np.uint64(len(xyz)).tobytes())
+        f.write(rec.tobytes())
+
+
+def median_s(fn, n=3):
+    out, times = None, []
+    for _ in range(n):
+        t = time.perf_counter()
+        out = fn()
+        times.append(time.perf_counter() - t)
+    return out, float(sorted(times)[n // 2])
+
+
+def phase_native_io(np, card, ply, work):
+    """(l.2) The native I/O: the library loads; (h)'s PLY of the asset
+    through ``read_ply`` (the native path, counted) equal in values to the
+    pure-python read (float32-promoted where native); a ``points3D.bin``
+    of the asset's points both ways (the native xyz and error
+    float32-rounded); each path's median ms of three reads."""
+    from gsplat_tpu_torch.data import colmap, native
+    from gsplat_tpu_torch.data import ply as ply_io
+    t0 = time.perf_counter()
+    check(native.available(), "(l.2) the native library does not load")
+    native.reset_call_counts()
+    got, s_native = median_s(lambda: ply_io.read_ply(ply))
+    check(native.call_counts["ply_read"] == 3,
+          f"(l.2) read_ply took the python path: {native.call_counts}")
+    want, s_python = median_s(lambda: ply_io.read_ply_python(ply))
+    check(sorted(got) == sorted(want) and all(
+        got[k].dtype == np.float32 and np.array_equal(got[k], want[k])
+        for k in want), "(l.2) the native PLY read differs")
+    n = len(want["x"])
+    xyz = np.stack([want["x"], want["y"], want["z"]], 1).astype(
+        np.float64) * (1 + 1e-9)
+    rng = np.random.default_rng(17)
+    rgb = rng.integers(0, 256, (n, 3))
+    err = rng.uniform(0, 2, n)
+    pts = os.path.join(work, "points3D.bin")
+    write_points3d_bin(np, pts, xyz, rgb, err)
+    (pxyz, prgb, perr), s_pts_native = median_s(
+        lambda: colmap.read_points3D_binary(pts))
+    check(native.call_counts["points3d"] == 3,
+          f"(l.2) read_points3D_binary: {native.call_counts}")
+    (qxyz, qrgb, qerr), s_pts_python = median_s(
+        lambda: colmap.read_points3D_binary_python(pts), n=1)
+    f32 = np.float32
+    check(np.array_equal(pxyz, qxyz.astype(f32)) and np.array_equal(
+        prgb, qrgb) and np.array_equal(perr, qerr.astype(f32)),
+        "(l.2) the native points3D read differs")
+    print(f"native io (l.2) [{card}]: {native.library_path()}; read_ply of "
+          f"{ply} ({n} gaussians, {len(want)} properties, "
+          f"{os.path.getsize(ply)} bytes): native {s_native * 1e3:.2f} ms, "
+          f"python {s_python * 1e3:.2f} ms (median of 3); points3D.bin of "
+          f"{n} points: native {s_pts_native * 1e3:.2f} ms, python "
+          f"{s_pts_python * 1e3:.2f} ms (one read); calls "
+          f"{json.dumps(native.call_counts)}; phase "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+def dpt_inputs(np, scene_dir):
+    """(h)'s first view prepared as the CLIs prepare it (672x384, the
+    minimal resize of 1920x1080) and its centre 1080x1080 crop (384x384)."""
+    from gsplat_tpu_torch.depth import transforms as DT
+    img = DT.read_image(os.path.join(scene_dir, "images", "view0.png"))
+    x0 = (W - H) // 2
+    return {"384x384": DT.prepare(img[:, x0:x0 + H])[None],
+            "672x384": DT.prepare(img)[None]}
+
+
+def phase_dpt(torch, np, card, scene_dir):
+    """(l.3) DPT at full width on the card: the published DPT-Hybrid and
+    DPT-Large (and the hybrid's 150-class segmentation head) from a seeded
+    ``torch.Generator`` through ``init_params``, at 384x384 and 672x384:
+    the card's output within DPT_REL_TOL of the largest magnitude of the
+    same model's output on the CPU; ms per image (median of DPT_TIMED
+    warmed runs, CUDA events), device busy ms and the largest device
+    operations (a profiled window of two), and peak memory."""
+    import copy
+
+    from gsplat_tpu_torch.depth import dpt
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    xs = dpt_inputs(np, scene_dir)
+    rows = []
+    cases = [(m, "depth", 150) for m in DPT_MODELS] + [
+        ("dpt_hybrid", "segmentation", DPT_SEGMENT_CLASSES)]
+    for seed, (mt, head, ncls) in enumerate(cases):
+        cfg = dpt.dpt_config(mt, head=head, num_classes=ncls)
+        t1 = time.perf_counter()
+        cpu = dpt.init_params(cfg, torch.Generator().manual_seed(seed),
+                              device="cpu")
+        t_init = time.perf_counter() - t1
+        n_params = sum(p.numel() for p in cpu.parameters())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        card_model = copy.deepcopy(cpu).to(dev)
+        sizes = ("672x384",) if head == "segmentation" else tuple(xs)
+        for size in sizes:
+            x = xs[size]
+            want = dpt.dpt_forward(cpu, x).numpy()
+            xd = torch.from_numpy(x).to(dev)
+            for _ in range(DPT_WARM):
+                got = dpt.dpt_forward(card_model, xd)
+            torch.cuda.synchronize()
+            times = []
+            for _ in range(DPT_TIMED):
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                got = dpt.dpt_forward(card_model, xd)
+                b.record()
+                torch.cuda.synchronize()
+                times.append(a.elapsed_time(b))
+            profile_window(torch, lambda: dpt.dpt_forward(card_model, xd),
+                           2, f"{mt} {head} image at {size}",
+                           float(np.median(times)), card, top=5)
+            got = got.cpu().numpy()
+            scale = float(np.abs(want).max())
+            gap = float(np.abs(got - want).max())
+            check(got.shape == want.shape and np.isfinite(got).all()
+                  and scale > 0 and gap <= DPT_REL_TOL * scale,
+                  f"(l.3) {mt} {head} at {size}: card against CPU "
+                  f"{gap} of {scale}")
+            rows.append(dict(model=mt, head=head, size=size,
+                             ms=float(np.median(times)), gap=gap,
+                             scale=scale))
+            print(f"dpt (l.3) [{card}]: {mt} {head} ({n_params} "
+                  f"parameters, init {t_init:.1f} s) at {size}: "
+                  f"{np.median(times):.3f} ms per image (median of "
+                  f"{DPT_TIMED}; min {min(times):.3f}, max "
+                  f"{max(times):.3f}), output {got.shape}, card against "
+                  f"CPU max |diff| {gap:.3g} of largest {scale:.6g} "
+                  f"({gap / scale:.3g})")
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+        print(f"dpt (l.3) [{card}]: {mt} {head}: peak {peak:.1f} MiB over "
+              f"the phase's start (weights "
+              f"{n_params * 4 / 2**20:.1f} MiB)")
+        del card_model, cpu
+        torch.cuda.empty_cache()
+    print(f"dpt (l.3) [{card}]: phase {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+def phase_dpt_clis(torch, np, card, scene_dir, work):
+    """(l.4) The DPT command lines on (h)'s five 1080p views: depth PNGs
+    into the scene's ``depth/`` (16-bit, 1920x1080), segmentation at 150
+    classes into a scratch folder (timed; on SEG150_VIEWS of the views: the
+    CLI's host work takes seconds a view) and at NUM_CLASS into
+    ``segment/``; then ``scripts.train.main`` on the scene at full
+    resolution with the depth and segment losses for PREP_TRAIN_ITERS
+    iterations, the counters zeroed just before: K3, K1, K2 and K4 once an
+    iteration, the loss finite, the files written."""
+    from PIL import Image
+
+    from gsplat_tpu_torch import _kernels
+    from gsplat_tpu_torch.depth import dpt as dpt_mod
+    from gsplat_tpu_torch.depth import transforms as DT
+    from gsplat_tpu_torch.scripts import run_monodepth, run_segmentation
+    from gsplat_tpu_torch.scripts import train as train_cli
+    t0 = time.perf_counter()
+    images = os.path.join(scene_dir, "images")
+    names = sorted(os.listdir(images))
+    n = len(names)
+    res = {}
+    seg150 = os.path.join(work, "segment150")
+    few = os.path.join(work, "segment150_views")
+    os.makedirs(few)
+    for name in names[:SEG150_VIEWS]:
+        shutil.copy(os.path.join(images, name), few)
+    for tag, main, src, out, extra in (
+            ("monodepth", run_monodepth.main, images,
+             os.path.join(scene_dir, "depth"), []),
+            ("segmentation 150", run_segmentation.main, few, seg150, []),
+            ("segmentation NUM_CLASS", run_segmentation.main, images,
+             os.path.join(scene_dir, "segment"),
+             ["--num_classes", str(NUM_CLASS)])):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with clocked_calls(torch, dpt_mod, ("dpt_forward",
+                                            "init_params")) as fwd, \
+                clocked_calls(torch, DT, ("write_depth",
+                                          "resize_prediction")) as host:
+            run_cli(main, ["-i", src, "-o", out, *extra], torch)
+        k = len(os.listdir(src))
+        res[tag] = dict(s=time.perf_counter() - t1, fwd=fwd["dpt_forward"],
+                        init=sum(fwd["init_params"]),
+                        resize=sum(host["resize_prediction"]),
+                        write=sum(host["write_depth"]), n=k)
+        check(len(fwd["dpt_forward"]) == k, f"(l.4) {tag}: "
+              f"{len(fwd['dpt_forward'])} forwards for {k} images")
+    for name in names:
+        with Image.open(os.path.join(scene_dir, "depth", name)) as im:
+            d = np.asarray(im)
+        check(im.mode.startswith("I") and d.shape == (H, W) and d.max() > 0,
+              f"(l.4) depth/{name}: {im.mode} {d.shape}")
+        for folder, ncls in ((os.path.join(scene_dir, "segment"),
+                              NUM_CLASS), (seg150, 150)):
+            p = os.path.join(folder, name)
+            if folder == seg150 and name not in names[:SEG150_VIEWS]:
+                continue
+            with Image.open(p) as im:
+                s = np.asarray(im)
+            check(s.dtype == np.uint8 and s.shape == (H, W)
+                  and int(s.max()) < ncls, f"(l.4) {p}: {s.dtype} {s.shape}")
+            check(os.path.exists(p[:-4] + "_overlay.png"), f"(l.4) {p}")
+    for tag, r in res.items():
+        k = r["n"]
+        rest = r["s"] - r["init"] - sum(r["fwd"]) - r["resize"] - r["write"]
+        print(f"dpt CLI (l.4) [{card}]: {tag}: {r['s']:.2f} s for {k} "
+              f"{W}x{H} images ({(r['s'] - r['init']) / k:.3f} s per image "
+              f"after the model's init_params {r['init']:.2f} s); an "
+              f"image: dpt_forward {sum(r['fwd']) / k * 1e3:.1f} ms (the "
+              f"first {r['fwd'][0] * 1e3:.1f}), bicubic resizes "
+              f"{r['resize'] / k * 1e3:.1f} ms, depth PNG writes "
+              f"{r['write'] / k * 1e3:.1f} ms, the rest (reads, prepare, "
+              f"the class argmax, class and overlay PNGs) "
+              f"{rest / k * 1e3:.1f} ms")
+
+    out = os.path.join(work, "prep_model")
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    t1 = time.perf_counter()
+    run_cli(train_cli.main, [
+        "-s", scene_dir, "-m", out, "-r", "1", "--using_depth",
+        "--depth_loss_choice",
+        "L1_loss", "--using_seg", "--num_class", str(NUM_CLASS),
+        "--disable_gui_server", "--iterations_override",
+        str(PREP_TRAIN_ITERS)], torch)
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t1
+    launches = dict(_kernels.launch_counts)
+    check(all(launches[k] == PREP_TRAIN_ITERS for k in PREP_KERNELS),
+          f"(l.4) training: K3, K1, K2 and K4 not once an iteration: "
+          f"{json.dumps(launches)}")
+    for f in ("cfg_args", "train_log.jsonl", "cameras.json", "input.ply",
+              os.path.join("point_cloud", f"iteration_{PREP_TRAIN_ITERS}",
+                           "point_cloud.ply")):
+        check(os.path.exists(os.path.join(out, f)), f"(l.4) training: no {f}")
+    with open(os.path.join(out, "train_log.jsonl")) as f:
+        log = [json.loads(x) for x in f]
+    check(log and all(math.isfinite(r["loss"]) for r in log),
+          f"(l.4) training: loss {log}")
+    print(f"dpt CLI (l.4) [{card}]: training on the DPT depth and segment "
+          f"maps, {PREP_TRAIN_ITERS} iterations at {W}x{H} in {t_train:.2f} "
+          f"s (scene load included), launches {json.dumps(launches)}, "
+          f"train_log {json.dumps(log)}; phase "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+def phase_prep(torch, np, card, work):
+    """(l) in order (l.1) to (l.4), on phase (h)'s scene and PLY."""
+    t0 = time.perf_counter()
+    scene_dir = os.path.join(work, "render_scene")
+    ply = os.path.join(work, "render_model", "point_cloud", "iteration_1",
+                       "point_cloud.ply")
+    prep = os.path.join(work, "prep")
+    os.makedirs(prep)
+    phase_prep_host(torch, np, card, scene_dir, prep)
+    phase_native_io(np, card, ply, prep)
+    rows = phase_dpt(torch, np, card, scene_dir)
+    phase_dpt_clis(torch, np, card, scene_dir, prep)
+    print(f"prep (l) [{card}]: phase {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+
 def main():
     import numpy as np
     import torch
@@ -3685,6 +4104,9 @@ def main():
 
     # ---- 16. (k) the viewers, the editor and the render backends ----------
     phase_viewing(torch, np, card, model, cam, bins, work)
+
+    # ---- 17. (l) data prep, native I/O, DPT and its CLIs into training ----
+    phase_prep(torch, np, card, work)
 
     # bounds: each input read once, each output written once
     k3_bound, k3_by, k3_bytes, k3_ops = wl.expand_bound(S, cap)

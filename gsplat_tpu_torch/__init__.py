@@ -8,15 +8,21 @@ loaded with ``ctypes`` (``_kernels.py``).
 
 This package imports neither ``jax`` nor anything of ``gsplat_tpu``.
 
-Ported so far (the serving path, ``renderer.render``; the training step,
-``train.trainer.make_train_step``; the training command line,
-``scripts/train.py`` over ``train.trainer.Trainer``, with the appearance
-embedding and the live-viewer socket; the render and evaluation command
-lines; training and rendering over several devices; and the viewers, the
-scene editor and the visualize command line):
+Everything the JAX package does is ported (the serving path,
+``renderer.render``; the training step, ``train.trainer.make_train_step``;
+the training command line, ``scripts/train.py`` over
+``train.trainer.Trainer``, with the appearance embedding and the
+live-viewer socket; the render and evaluation command lines; training and
+rendering over several devices; the viewers, the scene editor and the
+visualize command line; DPT depth and segmentation with their command
+lines; the data-prep converters, the COLMAP driver and the native reader):
 
 - ``core``    : cameras (numpy), quaternion/covariance math, SH evaluation
-- ``data``    : PLY reading and writing, COLMAP parsers, the COLMAP /
+- ``depth``   : DPT (hybrid, base, large; depth and ADE20k heads, plain
+                torch), the official checkpoint loader, DPT's transforms
+- ``data``    : PLY reading and writing, COLMAP parsers (the native C++
+                reader over ``native/`` where it loads), the SLAM / LLFF /
+                polycam converters, the COLMAP /
                 Blender / NeRFstudio readers, ``Scene`` and camera loading
 - ``models``  : ``GaussianParams`` / ``GaussianAux`` / ``GaussianModel``
                 (PLY export, checkpoints), per-group Adam, densification,
@@ -34,7 +40,8 @@ scene editor and the visualize command line):
                 tile-sharded render
 - ``config``  : the argparse parameter groups
 - ``scripts`` : ``train``, ``train_segment``, ``render``, ``metrics``,
-                ``full_eval``, ``visualize``
+                ``full_eval``, ``visualize``, ``run_monodepth``,
+                ``run_segmentation``, ``convert``
 - ``viz``     : camera paths (``camera_trajectory``), videos, LPIPS, the
                 SIBR viewer socket (``network_gui``), the scene editor
                 (``editor``), the HTTP viewer (``render_app``) and its

@@ -1,10 +1,10 @@
 """COLMAP sparse-model parsers (binary + text), numpy-only.
 
 Behavioral spec: reference scene/colmap_loader.py:43-282.  A copy of
-``gsplat_tpu/data/colmap.py`` (the port imports nothing of the JAX package)
-on its pure-python path: the JAX package's native C++ points3D parser
-(``gsplat_tpu/data/native.py``) is not carried over (ROADMAP Queue 1
-item 9).  Bulk struct parsing (single read + unpack_from sweeps) rather
+``gsplat_tpu/data/colmap.py`` (the port imports nothing of the JAX package):
+``read_points3D_binary`` goes through the native C++ parser
+(``data/native.py``) whenever the library loads, as the JAX module does, so
+its xyz passes through float32 there.  Bulk struct parsing (single read + unpack_from sweeps) rather
 than per-field ``read_next_bytes`` calls, same outputs.
 """
 from __future__ import annotations
@@ -128,7 +128,18 @@ def read_extrinsics_binary(path) -> Dict[int, ColmapImage]:
 
 
 def read_points3D_binary(path) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Returns (xyz [N,3], rgb [N,3] uint8-valued, error [N,1])."""
+    """Returns (xyz [N,3], rgb [N,3] uint8-valued, error [N,1]).
+    Uses the native C++ parser where it loads (native/gsplat_io.cpp)."""
+    from gsplat_tpu_torch.data import native
+    if native.available():
+        out = native.read_points3d_binary(path)
+        if out is not None:
+            return out
+    return read_points3D_binary_python(path)
+
+
+def read_points3D_binary_python(path):
+    """``read_points3D_binary``'s pure-python path (float64 throughout)."""
     with open(path, "rb") as f:
         data = f.read()
     (n,) = struct.unpack_from("<Q", data, 0)

@@ -1,9 +1,12 @@
 """Minimal PLY reader (binary little/big-endian + ascii) and writer (binary
 little-endian), numpy-only.
 
-Port of ``gsplat_tpu/data/ply.py`` on its pure-python path (the JAX
-package's native C++ reader is not carried over; ROADMAP Queue 1 item 9).
-Reads and writes the vertex element of the reference checkpoint schema
+Port of ``gsplat_tpu/data/ply.py``: a binary little-endian file over 1 MiB
+with no list property goes through the native C++ reader
+(``data/native.py``) where it loads, exactly where the JAX module takes it,
+and then every property comes back as float32 as it does there; the rest
+is the pure-python path.  Reads and writes the vertex element of the
+reference checkpoint schema
 (x,y,z,nx,ny,nz,f_dc_*,f_rest_*,opacity,segment_*,scale_*,rot_*) and of
 input point clouds (x,y,z,[nx,ny,nz],red,green,blue), byte for byte as the
 JAX package writes them.
@@ -11,7 +14,8 @@ JAX package writes them.
 from __future__ import annotations
 
 import io
-from typing import Dict, List, Tuple
+import os
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -29,8 +33,58 @@ _NP_TO_PLY = {"f4": "float", "f8": "double", "u1": "uchar", "i4": "int",
               "u4": "uint", "i1": "char", "i2": "short", "u2": "ushort"}
 
 
+def _header_prop_names(path: str) -> Optional[List[str]]:
+    """The vertex property names of a binary little-endian header, or None
+    (another format, a list property, no properties)."""
+    names = []
+    with open(path, "rb") as f:
+        head = f.read(65536)
+    if b"end_header" not in head or b"binary_little_endian" not in head:
+        return None
+    in_vertex = False
+    for line in head.split(b"\n"):
+        t = line.strip().split()
+        if not t:
+            continue
+        if t[0] == b"element":
+            in_vertex = t[1] == b"vertex"
+        elif t[0] == b"property" and in_vertex:
+            if t[1] == b"list":
+                return None
+            names.append(t[-1].decode())
+        elif t[0] == b"end_header":
+            break
+    return names or None
+
+
+def _read_ply_native(path: str) -> Optional[Dict[str, np.ndarray]]:
+    from gsplat_tpu_torch.data import native
+
+    if not native.available():
+        return None
+    names = _header_prop_names(path)
+    if not names:
+        return None
+    mat = native.ply_read_props(path, names)
+    if mat is None:
+        return None
+    return {n: np.ascontiguousarray(mat[:, i]) for i, n in enumerate(names)}
+
+
 def read_ply(path: str) -> Dict[str, np.ndarray]:
-    """Read the 'vertex' element into a dict of 1-D property arrays."""
+    """Read the 'vertex' element into a dict of 1-D property arrays.
+
+    Large binary files go through the native C++ parser where it loads
+    (every property float32 then); pure-python otherwise."""
+    if os.path.getsize(path) > (1 << 20):
+        out = _read_ply_native(path)
+        if out is not None:
+            return out
+    return read_ply_python(path)
+
+
+def read_ply_python(path: str) -> Dict[str, np.ndarray]:
+    """``read_ply``'s pure-python path: each property in the file's type."""
     with open(path, "rb") as f:
         data = f.read()
     header_end = data.find(b"end_header\n")

@@ -35,15 +35,18 @@ def init_multihost(coordinator_address: Optional[str] = None,
                    num_processes: Optional[int] = None,
                    process_id: Optional[int] = None, *, device="cuda",
                    backend: Optional[str] = None,
-                   timeout: datetime.timedelta = TIMEOUT):
+                   timeout: datetime.timedelta = TIMEOUT,
+                   store: Optional[dist.Store] = None):
     """Start the ``torch.distributed`` process group.  Returns ``(rank,
     world_size)``, as the JAX function returns ``(process_index,
     process_count)``.
 
     With ``coordinator_address`` (``host:port``), ``num_processes`` and
-    ``process_id`` the group starts over ``tcp://``; without them it reads
-    the environment ``torchrun`` sets (``MASTER_ADDR``, ``MASTER_PORT``,
-    ``WORLD_SIZE``, ``RANK``).  The backend is NCCL on ``device="cuda"``
+    ``process_id`` the group starts over ``tcp://``; with ``store``, a
+    store every rank reaches (``spawn_local``'s), and those two counts it
+    starts on that store; without either it reads the environment
+    ``torchrun`` sets (``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``,
+    ``RANK``).  The backend is NCCL on ``device="cuda"``
     and gloo on ``"cpu"``; ``backend`` names another one explicitly.  On
     the card the rank takes device ``LOCAL_RANK`` (torchrun's), or its
     rank modulo the host's device count.  A group that is already up is
@@ -51,11 +54,11 @@ def init_multihost(coordinator_address: Optional[str] = None,
     dev = torch.device(device)
     if dist.is_initialized():
         return dist.get_rank(), dist.get_world_size()
-    if coordinator_address and (num_processes is None or process_id is None):
+    explicit = coordinator_address or store is not None
+    if explicit and (num_processes is None or process_id is None):
         raise ValueError("--coordinator_address needs --num_processes and "
                          "--process_id")
-    rank = (process_id if coordinator_address
-            else int(os.environ.get("RANK", 0)))
+    rank = process_id if explicit else int(os.environ.get("RANK", 0))
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("init_multihost: device='cuda' but "
@@ -64,7 +67,11 @@ def init_multihost(coordinator_address: Optional[str] = None,
         torch.cuda.set_device(int(os.environ.get(
             "LOCAL_RANK", rank % torch.cuda.device_count())))
     backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
-    if coordinator_address:
+    if store is not None:
+        dist.init_process_group(backend, store=store,
+                                world_size=num_processes, rank=process_id,
+                                timeout=timeout)
+    elif coordinator_address:
         dist.init_process_group(
             backend, init_method=f"tcp://{coordinator_address}",
             world_size=num_processes, rank=process_id, timeout=timeout)
@@ -161,9 +168,13 @@ def free_port() -> int:
 def _rank_main(rank, fn, n, port, device, args):
     if torch.device(device).type == "cpu":
         # n ranks share the host's cores (torchrun sets OMP_NUM_THREADS=1
-        # for the same reason): oversubscribed intra-op threads spin
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // n))
-    init_multihost(f"127.0.0.1:{port}", n, rank, device=device)
+        # for the same reason): oversubscribed intra-op threads spin.  An
+        # OMP_NUM_THREADS the caller set is kept.
+        torch.set_num_threads(int(os.environ.get("OMP_NUM_THREADS", 0))
+                              or max(1, (os.cpu_count() or 1) // n))
+    store = dist.TCPStore("127.0.0.1", port, n, is_master=False,
+                          timeout=TIMEOUT)
+    init_multihost(None, n, rank, device=device, store=store)
     try:
         fn(*args)
     finally:
@@ -172,10 +183,16 @@ def _rank_main(rank, fn, n, port, device, args):
 
 def spawn_local(fn, n: int, args=(), device="cuda"):
     """Run ``fn(*args)`` in ``n`` local ranks (``torch.multiprocessing``,
-    spawned), each in the group ``init_multihost`` starts over
-    ``tcp://127.0.0.1`` on a free port; returns when every rank has ended
-    and raises if one failed (the others are then stopped).  ``fn`` must be
-    importable by name."""
+    spawned), each in the group ``init_multihost`` starts on a TCP store
+    this process holds on 127.0.0.1; returns when every rank has ended and
+    raises if one failed (the others are then stopped).  ``fn`` must be
+    importable by name.
+
+    The store binds its port (the kernel's choice) before the ranks start
+    and keeps it until they end, so no other process can take the port
+    between its choice and the ranks' rendezvous."""
     import torch.multiprocessing as mp
-    mp.spawn(_rank_main, args=(fn, n, free_port(), str(device), args),
+    store = dist.TCPStore("127.0.0.1", 0, n, is_master=True,
+                          wait_for_workers=False, timeout=TIMEOUT)
+    mp.spawn(_rank_main, args=(fn, n, store.port, str(device), args),
              nprocs=n, join=True)

@@ -165,7 +165,14 @@ def test_import_is_jax_free():
             "gsplat_tpu_torch.tools.bench_inkernel_gather, "
             "gsplat_tpu_torch.tools.bench_vpu_dtype, "
             "gsplat_tpu_torch.tools.k2_trees, "
-            "gsplat_tpu_torch.tools.sass_diff\n"
+            "gsplat_tpu_torch.tools.sass_diff, "
+            "gsplat_tpu_torch.depth, gsplat_tpu_torch.depth.dpt, "
+            "gsplat_tpu_torch.depth.weights, "
+            "gsplat_tpu_torch.depth.transforms, "
+            "gsplat_tpu_torch.scripts.run_monodepth, "
+            "gsplat_tpu_torch.scripts.run_segmentation, "
+            "gsplat_tpu_torch.scripts.convert, "
+            "gsplat_tpu_torch.data.converters, gsplat_tpu_torch.data.native\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'gsplat_tpu' or m.startswith('gsplat_tpu.')]\n"
             "assert not bad, bad\n")
@@ -233,6 +240,22 @@ def test_device_defaults_to_cuda():
             mod.main()
     with pytest.raises(RuntimeError, match="CUDA"):
         timing.cuda_device("cpu")
+    # DPT and its CLIs: the card unless the CPU is asked for
+    from gsplat_tpu_torch.depth import dpt, weights
+    from gsplat_tpu_torch.scripts import run_monodepth, run_segmentation
+    cfg = dpt.DPTConfig(features=32, reassemble=(16, 24, 32, 40),
+                        hooks=(0, 1, 2, 3), vit_dim=48, vit_depth=4,
+                        vit_heads=4, vit_mlp=64)
+    gen = torch.Generator().manual_seed(0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dpt.init_params(cfg, gen, grid=4)
+    model = dpt.init_params(cfg, gen, grid=4, device="cpu")
+    assert next(model.parameters()).device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        weights.load_torch("no_such.pt", cfg)
+    for cli in (run_monodepth, run_segmentation):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli.main(["-i", "no_such_dir"])
 
 
 def test_kernel_wrappers_validate_inputs():

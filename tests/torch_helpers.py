@@ -415,7 +415,10 @@ def run_module(module, argv, timeout=180):
     import subprocess
     import sys
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+    # one intra-op thread a process, as in the test processes: the ranks of
+    # a multi-device command otherwise take cpu_count // N threads each,
+    # which spin on a host the other test workers already fill
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=os.pathsep.join(
         [repo, os.environ.get("PYTHONPATH", "")]))
     p = subprocess.Popen([sys.executable, "-m", module, *argv],
                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
