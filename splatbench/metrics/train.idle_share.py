@@ -1,0 +1,7 @@
+"""train.idle_share: the share of the traced training window in which no
+device operation ran."""
+from splatbench.harness import readers
+
+
+def read(rec):
+    return readers.idle_share(rec)
