@@ -14,7 +14,8 @@ machine that runs them has no ``nvcc`` and no card.
 
 ``launch_counts`` holds one plain integer per kernel.  A wrapper adds one
 where it launches its kernel and nowhere else, so a caller can show that a
-run really went through the kernels.
+run really went through the kernels.  The port's other counters
+(``tracing.count``: ``host_syncs``) are kept in the same dict.
 """
 from __future__ import annotations
 

@@ -32,7 +32,7 @@ from typing import NamedTuple
 
 import torch
 
-from gsplat_tpu_torch import _kernels
+from gsplat_tpu_torch import _kernels, tracing
 from gsplat_tpu_torch.ops.preprocess import TILE_X, TILE_Y, PreprocessOut
 
 EXPAND_CHUNK = 1024   # the JAX kernel's slots per program (_EXP_CH): the
@@ -118,9 +118,10 @@ def _pad_and_tail_meta(num_tiles: int, align: int, rw_cap: int, pack_meta,
     tids = torch.arange(num_tiles, dtype=torch.int32, device=dev)
     meta_pad = pack_meta(tids, torch.full_like(tids, align if align > 1 else 1),
                          torch.zeros_like(tids))
-    meta_tail = pack_meta(torch.tensor([num_tiles], dtype=torch.int32,
-                                       device=dev),
-                          rw_cap, 0)
+    # on a card the copy from the host waits for the queue
+    with tracing.span("sync"):
+        tail = torch.tensor([num_tiles], dtype=torch.int32, device=dev)
+    meta_tail = pack_meta(tail, rw_cap, 0)
     return torch.cat([meta_pad, meta_tail])
 
 
@@ -360,9 +361,11 @@ def row_sources(pre: PreprocessOut, grid_x: int, grid_y: int,
     tau = torch.log(torch.clamp(255.0 * pre.opacity, min=1e-6)) + 1e-3
     rows_total = torch.sum(rh_s, dtype=torch.int32)
     y0 = pre.rect_min[:, 1].to(torch.int32)[order]
+    with tracing.span("sync"):
+        tail = torch.tensor([grid_y], **i32)
     meta = torch.cat([
         pack_meta(y0, torch.full_like(y0, rw_cap), torch.ones_like(y0)),
-        pack_meta(torch.tensor([grid_y], **i32), rw_cap, 0)])
+        pack_meta(tail, rw_cap, 0)])
     extras = torch.cat([
         torch.stack([pre.means2d[:, 0], pre.means2d[:, 1], pre.conic[:, 0],
                      pre.conic[:, 1], pre.conic[:, 2], tau,

@@ -32,7 +32,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from gsplat_tpu_torch import _kernels
+from gsplat_tpu_torch import _kernels, tracing
 from gsplat_tpu_torch.ops import segment_reduce
 from gsplat_tpu_torch.ops.binning import BinningOut
 from gsplat_tpu_torch.ops.composite_ref import ALPHA_MAX, ALPHA_MIN, T_EPS
@@ -628,15 +628,17 @@ class _Composite(torch.autograd.Function):
         table, gauss_id, starts, counts, packed = ctx.saved_tensors
         P, R = table.shape
         form = ctx.form
-        d_inst = scrub_nonfinite(composite_backward(
-            table, gauss_id, starts, counts, ctx.grid_x, packed,
-            d_packed.to(torch.float32).contiguous(), ctx.Cg, form), form)
-        d_table = segment_reduce.reduce_rows(
-            d_inst, gauss_id, P, ctx.grad_precision,
-            R - ATTR_BASE if form.feat_packed else 0)
-        if d_table.shape[1] < R:     # the constant last feature: no gradient
-            d_table = torch.cat(
-                [d_table, d_table.new_zeros((P, R - d_table.shape[1]))], dim=1)
+        with tracing.span("composite.backward"):
+            d_inst = scrub_nonfinite(composite_backward(
+                table, gauss_id, starts, counts, ctx.grid_x, packed,
+                d_packed.to(torch.float32).contiguous(), ctx.Cg, form), form)
+            d_table = segment_reduce.reduce_rows(
+                d_inst, gauss_id, P, ctx.grad_precision,
+                R - ATTR_BASE if form.feat_packed else 0)
+            if d_table.shape[1] < R:  # the constant last feature: no gradient
+                d_table = torch.cat(
+                    [d_table, d_table.new_zeros((P, R - d_table.shape[1]))],
+                    dim=1)
         return d_table, None, None, None, None, None, None, None
 
 

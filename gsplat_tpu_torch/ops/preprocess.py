@@ -18,6 +18,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from gsplat_tpu_torch import tracing
 from gsplat_tpu_torch.core import sh as sh_lib
 from gsplat_tpu_torch.core import transforms as T
 
@@ -80,9 +81,10 @@ def compute_cov2d(means3d, cov3d6, focal_x, focal_y, tan_fovx, tan_fovy,
     W = viewmatrix[:3, :3]
     # 0-d tensors, not Python floats: ``float / tensor`` is evaluated as
     # reciprocal(tensor) * float in PyTorch, one rounding more than XLA's
-    # true division
-    fx = tz.new_tensor(focal_x)
-    fy = tz.new_tensor(focal_y)
+    # true division.  On a card each copy from the host waits for the queue.
+    with tracing.span("sync"):
+        fx = tz.new_tensor(focal_x)
+        fy = tz.new_tensor(focal_y)
     j00 = fx / tz
     j11 = fy / tz
     j02 = -(fx * tx) / (tz * tz)

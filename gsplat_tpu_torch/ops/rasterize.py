@@ -23,7 +23,9 @@ Backends, wired as the JAX package wires them:
   by name: ``"auto"`` never falls back to them.
 
 Preprocess and the background term are plain autograd.  Binning is index
-bookkeeping and sees detached inputs.
+bookkeeping and sees detached inputs.  The three stages run in the spans
+``rasterize.preprocess``, ``rasterize.binning`` and ``rasterize.composite``
+(``tracing.py``); the composite's backward runs in ``composite.backward``.
 
 ``means2d_offset`` is the gradient tap that stands in for the reference's
 ``screenspace_points``: pass zeros [P,2] that require grad; its gradient is
@@ -36,6 +38,7 @@ from typing import Optional
 
 import torch
 
+from gsplat_tpu_torch import tracing
 from gsplat_tpu_torch.device import check_on, resolve_device
 from gsplat_tpu_torch.ops import binning as binning_lib
 from gsplat_tpu_torch.ops import composite_tiled as tiled_lib
@@ -134,60 +137,63 @@ def rasterize(
     def on_dev(x):
         return torch.as_tensor(x, dtype=torch.float32, device=dev)
 
-    pre = pre_lib.preprocess(
-        means3d, scales, rotations, opacities, shs,
-        config.sh_degree, on_dev(viewmatrix), on_dev(projmatrix),
-        on_dev(campos), tan_fovx, tan_fovy, config.width, config.height,
-        scale_modifier=scale_modifier,
-        cov3d_precomp=cov3d_precomp,
-        colors_precomp=colors_precomp,
-        clamp_tan_fovx=clamp_tan_fovx,
-        clamp_tan_fovy=clamp_tan_fovy,
-        full_width=config.full_width or None,
-        full_height=config.full_height or None,
-        pixel_offset=pixel_offset,
-    )
-    if means2d_offset is not None:
-        pre = pre._replace(means2d=pre.means2d + means2d_offset)
+    with tracing.span("rasterize.preprocess"):
+        pre = pre_lib.preprocess(
+            means3d, scales, rotations, opacities, shs,
+            config.sh_degree, on_dev(viewmatrix), on_dev(projmatrix),
+            on_dev(campos), tan_fovx, tan_fovy, config.width, config.height,
+            scale_modifier=scale_modifier,
+            cov3d_precomp=cov3d_precomp,
+            colors_precomp=colors_precomp,
+            clamp_tan_fovx=clamp_tan_fovx,
+            clamp_tan_fovy=clamp_tan_fovy,
+            full_width=config.full_width or None,
+            full_height=config.full_height or None,
+            pixel_offset=pixel_offset,
+        )
+        if means2d_offset is not None:
+            pre = pre._replace(means2d=pre.means2d + means2d_offset)
 
     # binning is index bookkeeping: no gradient flows through it; the
     # tiled path takes no pads
     tiled = config.backend in TILED_BACKENDS
-    bins = binning_lib.bin_gaussians(
-        pre_lib.PreprocessOut(*[x.detach() for x in pre]),
-        config.grid_x, config.grid_y, config.max_instances,
-        align=1 if tiled else ALIGN, cull=config.cull,
-        max_rows=config.max_rows)
+    with tracing.span("rasterize.binning"):
+        bins = binning_lib.bin_gaussians(
+            pre_lib.PreprocessOut(*[x.detach() for x in pre]),
+            config.grid_x, config.grid_y, config.max_instances,
+            align=1 if tiled else ALIGN, cull=config.cull,
+            max_rows=config.max_rows)
 
-    if config.render_only:
-        feats = pre.rgb
-    else:
-        # the constant weight/ones column sits last, so the compositor can
-        # leave it out of the backward (const_last_feat)
-        feats = [pre.rgb, pre.depths[:, None]]
-        if config.num_class > 0:
-            if segments is None:
-                raise ValueError("num_class > 0 needs segments")
-            feats.append(segments)
-        feats.append(torch.ones_like(pre.depths[:, None]))
-        feats = torch.cat(feats, dim=1)
+    with tracing.span("rasterize.composite"):
+        if config.render_only:
+            feats = pre.rgb
+        else:
+            # the constant weight/ones column sits last, so the compositor
+            # can leave it out of the backward (const_last_feat)
+            feats = [pre.rgb, pre.depths[:, None]]
+            if config.num_class > 0:
+                if segments is None:
+                    raise ValueError("num_class > 0 needs segments")
+                feats.append(segments)
+            feats.append(torch.ones_like(pre.depths[:, None]))
+            feats = torch.cat(feats, dim=1)
 
-    if tiled:
-        img, T_final = tiled_lib.composite_tiled(
-            pre.means2d, pre.conic, pre.opacity, feats, bins,
-            config.width, config.height, k_max=config.k_max,
-            tile_batch=config.tile_batch)
-        chw, overflow = img.permute(2, 0, 1), bins.overflow
-    else:
-        chw, T_final, overflow = composite_cuda(
-            pre.means2d, pre.conic, pre.opacity, feats, bins,
-            config.width, config.height,
-            const_last_feat=not config.render_only,
-            grad_precision=config.grad_precision,
-            mxu_power=config.mxu_power,
-            feat_precision=config.feat_precision)
+        if tiled:
+            img, T_final = tiled_lib.composite_tiled(
+                pre.means2d, pre.conic, pre.opacity, feats, bins,
+                config.width, config.height, k_max=config.k_max,
+                tile_batch=config.tile_batch)
+            chw, overflow = img.permute(2, 0, 1), bins.overflow
+        else:
+            chw, T_final, overflow = composite_cuda(
+                pre.means2d, pre.conic, pre.opacity, feats, bins,
+                config.width, config.height,
+                const_last_feat=not config.render_only,
+                grad_precision=config.grad_precision,
+                mxu_power=config.mxu_power,
+                feat_precision=config.feat_precision)
 
-    render = chw[0:3] + T_final[None] * on_dev(bg)[:, None, None]
+        render = chw[0:3] + T_final[None] * on_dev(bg)[:, None, None]
     out = {
         "render": render,
         "radii": pre.radii,

@@ -25,7 +25,7 @@ from typing import Optional
 
 import torch
 
-from gsplat_tpu_torch import _kernels
+from gsplat_tpu_torch import _kernels, tracing
 
 
 def segment_sum_sorted_plain(vals, sids, num_segments: int, perm=None):
@@ -195,8 +195,9 @@ class _GatherRows(torch.autograd.Function):
     @staticmethod
     def backward(ctx, d_out):
         (idx,) = ctx.saved_tensors
-        d_table = reduce_rows(d_out, idx, ctx.num_rows, ctx.grad_precision,
-                              ctx.packed_tail)
+        with tracing.span("composite.backward"):
+            d_table = reduce_rows(d_out, idx, ctx.num_rows,
+                                  ctx.grad_precision, ctx.packed_tail)
         return d_table, None, None, None
 
 
