@@ -49,7 +49,8 @@ Phases (any failure exits non-zero; nothing is caught):
    rendered from the unperturbed asset, parameters perturbed by seeded
    noise; ten steps of ``train.trainer.make_train_step`` (SH degree 3,
    num_class=2, segment loss, depth loss "L1_loss") with the launch counters
-   zeroed just before — K5, K6, K3, K1, K2 and K4 once per step, no overflow,
+   zeroed just before — K5, K6, K7, K8, K3, K1, K2 and K4 once per step, no
+   overflow,
    falling loss, finite state — then ms/step, device busy time per step,
    the step with ``cull="exact"`` and without alternated from one state
    (ms/step, device busy, launches per step), one ``densify_and_prune``
@@ -59,8 +60,8 @@ Phases (any failure exits non-zero; nothing is caught):
    features, the quad power): the perturbed
    asset in 524,288 slots on four cameras near bench.py's, 40 iterations
    with the counters zeroed just before — K3x, K3, K1 and K2 in their
-   packed quad form, and K4 once per step, densification fires, an overflow only with a regrow after it, the
-   loss falls before the first densification, the PLY, ``eval_log.jsonl``
+   packed quad form, K4, K7 and K8 once per step, densification fires,
+   an overflow only with a regrow after it, the loss falls before the first densification, the PLY, ``eval_log.jsonl``
    and a checkpoint that restores to equal tensors; (d) the command line
    ``scripts.train.main`` in process with ``--cull exact`` (and the
    same default numerics) on a small
@@ -80,7 +81,8 @@ Phases (any failure exits non-zero; nothing is caught):
    column's largest, packed words within one bf16 ulp beyond it — and
    timed; then ten ``make_train_step`` steps in the JAX Trainer's
    configuration with the counters zeroed just before (K3, K1 and K2 in
-   the packed quad form, K4, once per step; finite state, falling loss),
+   the packed quad form, K4, K7 and K8, once per step; finite state,
+   falling loss),
    that step and the f32 one alternated from one state (f32, default,
    default, f32: ms/step, device busy, idle share), one counted step in
    each single form, and bench.py's serving configuration
@@ -147,7 +149,7 @@ Phases (any failure exits non-zero; nothing is caught):
    build and held at their stdin until this phase) sharing ``cuda:0``
    over gloo, one data-parallel step (camera r on rank r) and one 2-slice
    tile-sharded step at 1920x1152 in the 524,288-slot model, K3, K1, K2
-   and K4 counted in each rank, the state bit-equal across the ranks and
+   and K4 counted in each rank (K7 and K8 once each), the state bit-equal across the ranks and
    the gradients (a cold Adam step's first moments) and densification
    statistics within rtol 3e-3 and 1e-3 of each field's largest of the
    single-process oracles; (j.4) ``scripts.train.main`` with
@@ -213,6 +215,15 @@ Phases (any failure exits non-zero; nothing is caught):
    registers and spills of every instantiation.  The table's rows take
    their launch counts from the render of phase 7 (K5) and the steps of
    phase 8 (K6), which check one of each a frame and a step.
+19. (n) SSIM, K7 and K8 (``csrc/ssim.cu``): the asset's 1080p render of
+   phase 7 against it with seeded noise added, at 1920x1080 and on their
+   1777x1001 corner: K7's mean within 1e-6 relative of ``ssim_plain``'s,
+   K8's gradient per entry within rtol 1e-4 plus 1e-4 of the plain
+   gradient's largest magnitude, each bit-equal over two launches; at 1080p
+   both timed on the device alone beside their operation bounds, their
+   plain versions and ``ssim_plain``'s autograd chain, with ptxas's
+   registers and spills.  The table's rows take their launch counts from
+   phase 8's steps; every training phase checks one of each a step.
 
 Each bound (``tools/workload.py::bound_ms``) is the largest of the bytes
 over the HBM rate, the operations over the fp32 (or bf16) rate and the
@@ -792,11 +803,12 @@ def phase_train(torch, np, card, cam, model, cap):
     launches = dict(_kernels.launch_counts)
     print(f"train: launches over {TRAIN_STEPS} steps {json.dumps(launches)}")
     check(all(launches[k] == TRAIN_STEPS for k in (
-        "preprocess_forward", "preprocess_backward", "expand",
-        "composite_forward", "composite_backward", "segment_sum"))
+        "preprocess_forward", "preprocess_backward", "ssim_forward",
+        "ssim_backward", "expand", "composite_forward", "composite_backward",
+        "segment_sum"))
           and launches["expand_extras"] == 0,
-          "train: K5, K6, K3, K1, K2 and K4 did not each launch once per "
-          "step")
+          "train: K5, K6, K7, K8, K3, K1, K2 and K4 did not each launch once "
+          "per step")
     for h in (history[0], history[-1]):
         print("train: step metrics " + json.dumps(h))
     check(all(math.isfinite(h["loss"]) for h in history),
@@ -917,7 +929,8 @@ TRAINER_ITERS = 40
 # the Trainer and the command line run the JAX Trainer's numerics: K1 and
 # K2 in their packed quad form
 CULL_KERNELS = ("expand_extras", "expand", "composite_forward_packed_quad",
-                "composite_backward_packed_quad", "segment_sum")
+                "composite_backward_packed_quad", "segment_sum",
+                "ssim_forward", "ssim_backward")
 
 
 class MemoryScene:
@@ -1029,8 +1042,8 @@ def phase_trainer(torch, np, card, model, thr, extent):
         prev = {k: 0 for k in CULL_KERNELS}
         for r in rows:
             check(all(r["launches"][k] - prev[k] == 1 for k in CULL_KERNELS),
-                  f"trainer: step {r['it']} did not launch K3x, K3, K1, K2 "
-                  f"and K4 once each ({r['launches']})")
+                  f"trainer: step {r['it']} did not launch K3x, K3, K1, K2, "
+                  f"K4, K7 and K8 once each ({r['launches']})")
             prev = r["launches"]
         for i, r in enumerate(rows):
             if r["overflow"]:
@@ -1438,8 +1451,8 @@ SOCKET_TIMEOUT = 120.0   # = False: 32 frames served at the first poll, the
 def phase_appearance_step(torch, np, card, w):
     """(i.1) ``make_appearance_step`` in the JAX Trainer's numerics on
     phase 8's state: TRAIN_STEPS steps with the counters zeroed just before
-    (K3, K1 and K2 in the packed quad form, and K4, once a step; no
-    overflow, finite state, falling loss, only the camera's row of the
+    (K3, K1 and K2 in the packed quad form, K4, K7 and K8, once a step;
+    no overflow, finite state, falling loss, only the camera's row of the
     embedding moved), then that step and ``make_train_step`` alternated
     from one state (default, appearance, appearance, default): ms/step,
     device busy ms/step and the appearance's extra busy time.  Returns the
@@ -1473,11 +1486,12 @@ def phase_appearance_step(torch, np, card, w):
     launches = dict(_kernels.launch_counts)
     check(all(launches[k] == TRAIN_STEPS for k in (
         "expand", "composite_forward_packed_quad",
-        "composite_backward_packed_quad", "segment_sum"))
+        "composite_backward_packed_quad", "segment_sum", "ssim_forward",
+        "ssim_backward"))
           and launches["composite_forward"] == 0
           and launches["composite_backward"] == 0,
           f"appearance (i.1): the steps did not launch K3, K1 and K2 in the "
-          f"packed quad form and K4 once each ({launches})")
+          f"packed quad form, K4, K7 and K8 once each ({launches})")
     check(all(math.isfinite(h["loss"]) and not h["overflow"]
               for h in history), "appearance (i.1): a step failed")
     check(history[-1]["loss"] < history[0]["loss"],
@@ -1670,7 +1684,7 @@ def phase_appearance_trainer(torch, np, card, w, model, extent):
             check(all(r["launches"][k] - prev[k] == 1 for k in CULL_KERNELS)
                   and r["launches"]["composite_forward"] == n_frames,
                   f"appearance (i.2): step {r['it']} did not launch K3x, "
-                  f"K3, K1, K2 and K4 once each ({r['launches']})")
+                  f"K3, K1, K2, K4, K7 and K8 once each ({r['launches']})")
             prev = r["launches"]
         want = quantize(renderer.render(
             cam, before, bg_color=tr.bg, max_instances=rows[0]["capacity"],
@@ -2132,11 +2146,12 @@ def phase_form_paths(torch, np, card, w):
     launches = {"packed_quad": dict(_kernels.launch_counts)}
     check(all(launches["packed_quad"][k] == TRAIN_STEPS for k in (
         "expand", "composite_forward_packed_quad",
-        "composite_backward_packed_quad", "segment_sum"))
+        "composite_backward_packed_quad", "segment_sum", "ssim_forward",
+        "ssim_backward"))
           and launches["packed_quad"]["composite_forward"] == 0
           and launches["packed_quad"]["composite_backward"] == 0,
           f"forms (f): the default steps did not launch K3, K1 and K2 in "
-          f"the packed quad form and K4 once each ({launches})")
+          f"the packed quad form, K4, K7 and K8 once each ({launches})")
     check(all(math.isfinite(h["loss"]) and not h["overflow"]
               for h in history), "forms (f): a default step failed")
     check(history[-1]["loss"] < history[0]["loss"]
@@ -2548,9 +2563,9 @@ def phase_par_nccl(torch, np, card, cam, model, cap):
     """(j.2) ``make_parallel_train_step`` at world size 1 over NCCL, at
     1920x1080 in the TRAIN_CAPACITY model (phase 8's inputs): bit-equal to
     ``make_train_step`` from the same state (every state tensor and
-    metric), K3, K1, K2 and K4 once per step; then the two alternated
-    (plain, data-parallel, data-parallel, plain) for ms/step and device
-    busy per step."""
+    metric), K3, K1, K2, K4, K7 and K8 once per step; then the two
+    alternated (plain, data-parallel, data-parallel, plain) for ms/step
+    and device busy per step."""
     import torch.distributed as dist
 
     from gsplat_tpu_torch import _kernels
@@ -2589,7 +2604,8 @@ def phase_par_nccl(torch, np, card, cam, model, cap):
         launches = {k: v for k, v in _kernels.launch_counts.items() if v}
         check(all(launches.get(k) == 1 for k in (
             "expand", "composite_forward", "composite_backward",
-            "segment_sum")), f"(j.2) launches {launches}")
+            "segment_sum", "ssim_forward", "ssim_backward")),
+              f"(j.2) launches {launches}")
         diff = [k for k, a, b in zip(
             ("params", "opt", "aux"), got[:3], want[:3])
             if not all(torch.equal(x, y) for x, y in zip(
@@ -2771,7 +2787,10 @@ def phase_par_ranks(torch, np, card, model, ranks, work):
             n = got[r][step]["launches"]
             check(all(n.get(k, 0) >= 1 for k in (
                 "expand", "composite_forward", "composite_backward",
-                "segment_sum")), f"(j.3) {step} rank {r}: launches {n}")
+                "segment_sum"))
+                  and n.get("ssim_forward") == 1
+                  and n.get("ssim_backward") == 1,
+                  f"(j.3) {step} rank {r}: launches {n}")
         errs = {}
         for n, a, b in zip(names, got[0][step]["state"], oracle[step]):
             if not (n.startswith("opt.mu.") or n in (
@@ -3943,6 +3962,104 @@ def phase_preprocess(torch, card, model, cam, report, launches):
     return rows
 
 
+# (n) SSIM: the asset's render against a seeded noisy copy of it, and the
+# two images' ragged top-left corner
+SSIM_SHAPES = {"1920x1080": (1080, 1920), "1777x1001": (1001, 1777)}
+SSIM_ENTRY = re.compile(r"ssim_(forward|backward|mean)_kernel")
+
+
+def phase_ssim(torch, card, img, report, launches):
+    """(n) K7 and K8 (``csrc/ssim.cu``) on the asset's 1080p render
+    (clamped to [0, 1]) against it with seeded noise added, at 1920x1080
+    and on their 1777x1001 corner: K7's mean within 1e-6 relative of
+    ``ssim_plain``'s, K8's gradient per entry within rtol 1e-4 plus 1e-4 of
+    the plain gradient's largest magnitude, each bit-equal over two
+    launches; at 1080p both timed on the device alone beside their
+    operation bounds (``workload.ssim_bound``), their plain versions and the
+    autograd chain of ``ssim_plain`` (the SSIM the step ran before them).
+    ``launches``: the main path's counts of each.  Returns the kernel
+    table's rows."""
+    from gsplat_tpu_torch import _kernels
+    from gsplat_tpu_torch.tools import workload as wl
+    from gsplat_tpu_torch.train import losses as L
+    t0 = time.perf_counter()
+    regs = _kernels.ptxas_entries(report, SSIM_ENTRY)
+    print("ssim (n) ptxas: " + "; ".join(
+        f"{k[0]}: {r} registers, {sp} bytes spilled"
+        for k, (r, sp) in sorted(regs.items())))
+    check(len(regs) == 3 and all(sp == 0 for _, sp in regs.values()),
+          "ssim (n): a kernel spills or is missing")
+    gen = torch.Generator(device=img.device)
+    gen.manual_seed(21)
+    x = img.detach().clamp(0, 1).contiguous()
+    y = (x + 0.05 * torch.randn(x.shape, generator=gen, device=x.device)
+         ).clamp(0, 1)
+    g = torch.tensor(-0.2, device=x.device)
+    errs = {}
+    for tag, (h, w) in SSIM_SHAPES.items():
+        a, b = x[:, :h, :w].contiguous(), y[:, :h, :w].contiguous()
+        got, want = L.ssim_forward(a, b), L.ssim_plain(a, b)
+        rel = abs(float(got) - float(want)) / abs(float(want))
+        check(rel <= 1e-6, f"ssim (n) {tag}: K7 {float(got)!r} against "
+              f"the plain version's {float(want)!r} ({rel:.3g} relative)")
+        d_got = L.ssim_backward(a, b, g)
+        d_want = L.ssim_backward_plain(a, b, g)
+        check(bool(torch.isfinite(d_got).all()), f"ssim (n) {tag}: K8 "
+              "non-finite")
+        floor = 1e-4 * float(d_want.abs().max())
+        over = int((~torch.isclose(d_got, d_want, rtol=1e-4, atol=floor))
+                   .sum())
+        check(over == 0, f"ssim (n) {tag}: {over} K8 entries outside rtol "
+              f"1e-4 + {floor:.3g}")
+        check(torch.equal(got, L.ssim_forward(a, b))
+              and torch.equal(d_got, L.ssim_backward(a, b, g)),
+              f"ssim (n) {tag}: a second launch gave other bits")
+        errs[tag] = {"ssim": float(got), "k7_rel": rel,
+                     "k7_abs": abs(float(got) - float(want)),
+                     "k8_max_abs": float((d_got - d_want).abs().max()),
+                     "k8_atol": floor,
+                     "k8_equal_share": float((d_got == d_want).float().mean())}
+    print(f"ssim (n): K7 and K8 within their limits of the plain versions "
+          f"and bit-equal over two launches: {json.dumps(errs)}")
+
+    xg = x.clone().requires_grad_(True)
+
+    def chain():
+        torch.autograd.grad(L.ssim_plain(xg, y), xg, g)
+
+    C, H_, W_ = x.shape
+    rows, kernel_ms = [], {}
+    for kernel, fn, plain_fn, backward, counter in (
+            ("K7 ssim_forward", lambda: L.ssim_forward(x, y),
+             lambda: L.ssim_plain(x, y), False, "ssim_forward"),
+            ("K8 ssim_backward", lambda: L.ssim_backward(x, y, g),
+             lambda: L.ssim_backward_plain(x, y, g), True, "ssim_backward")):
+        ms = [median_ms(fn, 20) for _ in range(2)]
+        plain_ms = event_ms(plain_fn, 5, warmup=1)
+        bound, by, nbytes, nops = wl.ssim_bound(C, H_, W_, backward)
+        kernel_ms[counter] = min(ms)
+        print(f"{kernel} [{card}] at {W_}x{H_}: {ms[0]:.4f}, {ms[1]:.4f} ms "
+              f"on the device alone; plain version {plain_ms:.3f} ms; bound "
+              f"{bound:.4f} ms by {by} ({nops} operations, {nbytes} bytes), "
+              f"{100 * bound / min(ms):.1f}% of it")
+        rows.append({"name": kernel, "route": "cuda",
+                     "source": "gsplat_tpu_torch/csrc/ssim.cu",
+                     "replaces": "none (XLA fusion of "
+                                 "gsplat_tpu/train/losses.py:33)",
+                     "launches": launches[counter],
+                     "ms": min(ms), "plain_ms": plain_ms,
+                     "bound_ms": bound, "bound_by": by, "library_ms": None,
+                     "max_abs_err": errs["1920x1080"]["k8_max_abs"
+                                                      if backward
+                                                      else "k7_abs"]})
+    chain_ms = event_ms(chain, 5, warmup=1)
+    print(f"ssim (n) [{card}]: ssim_plain and its autograd backward "
+          f"{chain_ms:.3f} ms a call at {W_}x{H_}, against K7 + K8 "
+          f"{sum(kernel_ms.values()):.4f} ms; phase "
+          f"{time.perf_counter() - t0:.1f} s")
+    return rows
+
+
 def main():
     import numpy as np
     import torch
@@ -4251,6 +4368,10 @@ def main():
         "preprocess_forward": launches["preprocess_forward"],
         "preprocess_backward": train_launches["preprocess_backward"]})
 
+    # ---- 19. (n) SSIM: K7 and K8 against their plain versions -------------
+    ssim_rows = phase_ssim(torch, card, out["render"], report, {
+        k: train_launches[k] for k in ("ssim_forward", "ssim_backward")})
+
     # ---- 10. (e) the kernel probes of gsplat_tpu_torch/tools ---------------
     probe_rows = phase_probes(torch, card, w)
 
@@ -4330,6 +4451,7 @@ def main():
         *probe_rows,
         *form_rows(form_kernel_rows, form_launches),
         *pre_rows,
+        *ssim_rows,
     ]
     print(f"launches: K3 and K1 from the one render, K2 and K4 from the "
           f"{train_steps} training steps (K3 and K1 also ran "

@@ -35,7 +35,7 @@ LIB_PATH = os.path.join(BUILD_DIR, "libgsplat_kernels.so")
 SOURCES = ("common.cu", "expand.cu", "composite_fwd.cu", "composite_bwd.cu",
            "composite_fwd_forms.cu", "composite_bwd_forms.cu", "segsum.cu",
            "probe_fwd.cu", "probe_bwd.cu", "probe_load.cu", "probe_dtype.cu",
-           "preprocess.cu")
+           "preprocess.cu", "ssim.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",
@@ -56,6 +56,7 @@ launch_counts = {"expand": 0, "expand_extras": 0,
                     for f in COMPOSITE_FORMS},
                  "segment_sum": 0,
                  "preprocess_forward": 0, "preprocess_backward": 0,
+                 "ssim_forward": 0, "ssim_backward": 0,
                  # the kernel probes of gsplat_tpu_torch/tools (P1 to P4)
                  "probe_forward": 0, "probe_backward": 0, "probe_load": 0,
                  "probe_dtype": 0}
@@ -64,6 +65,7 @@ _VP = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
+_FP = ctypes.POINTER(ctypes.c_float)
 SIGNATURES = {
     # offsets, meta, gid_src, S, I, rw_bits, grid_x, num_tiles,
     # tile_out, gid_out, stream
@@ -142,6 +144,16 @@ SIGNATURES = {
                                    _VP, _VP, _I, _F, _F, _F, _F, _F, _F, _F,
                                    _VP, _L, _VP, _L, _L, _VP, _L, _L, _VP,
                                    _L, _L, _VP, _VP, _VP, _VP, _VP, _VP),
+    # C, H, W: the float32 words of gsplat_ssim_forward's partial sums
+    "gsplat_ssim_partials": (_I, _I, _I),
+    # img1, img2, C, H, W, taps (11 floats on the host), C1, C2, partial,
+    # out (one float), stream
+    "gsplat_ssim_forward": (_VP, _VP, _I, _I, _I, _FP, _F, _F, _VP, _VP,
+                            _VP),
+    # img1, img2, C, H, W, taps, C1, C2, the upstream gradient (one float
+    # on the device), d img1, stream
+    "gsplat_ssim_backward": (_VP, _VP, _I, _I, _I, _FP, _F, _F, _VP, _VP,
+                             _VP),
 }
 
 _lock = threading.Lock()

@@ -792,3 +792,29 @@ def dtype_bound(n: int, itemsize: int, n_programs: int, n_iters: int, bf16):
     rounds = n * n_programs * n_iters
     return bound_ms(2 * n * itemsize, DTYPE_OPS * rounds,
                     BF16_OPS_PER_S if bf16 else FP32_OPS_PER_S, nexp=rounds)
+
+
+# fp32 operations of K7 and K8 (csrc/ssim.cu) per pixel and channel, a
+# multiply and an add counted apart: a window pass of one plane is 11
+# products and 10 sums (21); the five planes take x^2, y^2 and xy (3) and
+# two passes each (210); a pixel's SSIM takes the three moments' products,
+# the three variances, N1, N2, D1, D2 (two each), their two products and the
+# quotient (17), and the forward's mean one sum (1).  K8 recomputes the
+# planes and S, forms A (11), B (2) and Cxy (2), runs two passes over those
+# three planes (126) and combines them with x, y and the scale (6).
+SSIM_PASS_OPS = 21
+SSIM_FWD_OPS = 3 + 2 * 5 * SSIM_PASS_OPS + 17 + 1
+SSIM_BWD_OPS = 3 + 2 * 5 * SSIM_PASS_OPS + 17 + 15 + 2 * 3 * SSIM_PASS_OPS + 6
+
+
+def ssim_bound(C: int, H: int, W: int, backward: bool = False):
+    """(ms, by, bytes, operations) of K7 (the mean of SSIM over [C, H, W])
+    or, with ``backward``, of K8 (the gradient with respect to img1): the
+    two images read once and the mean (4 bytes) or the gradient plane and
+    the upstream gradient's 4 bytes; nothing of a design's intermediates."""
+    n = C * H * W
+    if backward:
+        nbytes, nops = 3 * 4 * n + 4, SSIM_BWD_OPS * n
+    else:
+        nbytes, nops = 2 * 4 * n + 4, SSIM_FWD_OPS * n
+    return (*bound_ms(nbytes, nops), nbytes, nops)

@@ -11,13 +11,22 @@ Where the JAX code draws from a key, the function here takes a
 ``torch.Generator`` and, for tests that hand both packages the same numbers,
 the draws themselves (``draws``: a dict with ``rank_sample`` [1000],
 ``patch_rows`` [100] and ``patch_cols`` [100], integer tensors).
+
+SSIM on a CUDA tensor is one ``torch.autograd.Function`` over two
+hand-written kernels (``csrc/ssim.cu``): K7, the forward and its mean, and
+K8, the analytic gradient with respect to the rendered image.  On a CPU
+tensor it runs their plain versions' arithmetic, ``ssim_plain`` under
+autograd; ``ssim_backward_plain`` spells K8's adjoint out in torch.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Optional
 
 import torch
+
+from gsplat_tpu_torch import _kernels, tracing
 
 
 def l1_loss(x, y):
@@ -36,39 +45,166 @@ def _gaussian_1d(window_size: int, sigma: float):
     return [v / sum(g) for v in g]
 
 
-def ssim(img1, img2, window_size: int = 11):
-    """Windowed SSIM, 11x11 gaussian sigma=1.5 (loss_utils.py:110-150).
-    img: [C,H,W] in [0,1].
+def _window_sum(x, g):
+    """x [N,H,W] through the separable window ``outer(g, g)``: a vertical
+    then a horizontal pass of shift-multiply-adds in x's own precision (full
+    float32 on the main path, where a library convolution would run in TF32
+    on the card by default), zero padded as ``F.conv2d(padding=len(g) //
+    2)``."""
+    r = len(g) // 2
+    N, H, W = x.shape
+    xp = torch.nn.functional.pad(x, (0, 0, r, r))
+    x = sum(g[i] * xp[:, i:i + H] for i in range(len(g)))
+    xp = torch.nn.functional.pad(x, (r, r))
+    return sum(g[i] * xp[:, :, i:i + W] for i in range(len(g)))
 
-    The reference window is ``outer(g, g)`` of a 1D gaussian, exactly
-    separable, so the 2D convolution runs as two 11-tap 1D passes of
-    shift-multiply-adds in full float32, as in the JAX package (a library
-    convolution would run in TF32 on the card by default)."""
-    g = _gaussian_1d(window_size, 1.5)
-    r = window_size // 2
 
-    def conv(x):
-        # x [N,H,W]; zero padding matches F.conv2d(padding=window//2)
-        N, H, W = x.shape
-        xp = torch.nn.functional.pad(x, (0, 0, r, r))
-        x = sum(g[i] * xp[:, i:i + H] for i in range(window_size))
-        xp = torch.nn.functional.pad(x, (r, r))
-        return sum(g[i] * xp[:, :, i:i + W] for i in range(window_size))
+C1, C2 = 0.01 ** 2, 0.03 ** 2
+_WINDOW = 11          # the one window K7 and K8 take
 
-    # one separable pass over all five conv inputs
-    stacked = torch.cat(
-        [img1, img2, img1 * img1, img2 * img2, img1 * img2], dim=0)
-    out = conv(stacked)
+
+def _ssim_terms(img1, img2, g):
+    """mu1, mu2 and the four factors of each pixel's SSIM,
+    N1 = 2 mu1 mu2 + C1, N2 = 2 sigma12 + C2, D1 = mu1^2 + mu2^2 + C1 and
+    D2 = sigma1^2 + sigma2^2 + C2, from one separable pass of the window
+    ``g`` over all five conv inputs."""
     C = img1.shape[0]
+    out = _window_sum(torch.cat(
+        [img1, img2, img1 * img1, img2 * img2, img1 * img2], dim=0), g)
     mu1, mu2 = out[0:C], out[C:2 * C]
     mu1_sq, mu2_sq, mu1_mu2 = mu1 ** 2, mu2 ** 2, mu1 * mu2
     sigma1_sq = out[2 * C:3 * C] - mu1_sq
     sigma2_sq = out[3 * C:4 * C] - mu2_sq
     sigma12 = out[4 * C:5 * C] - mu1_mu2
-    C1, C2 = 0.01 ** 2, 0.03 ** 2
-    ssim_map = ((2 * mu1_mu2 + C1) * (2 * sigma12 + C2)) / (
-        (mu1_sq + mu2_sq + C1) * (sigma1_sq + sigma2_sq + C2))
-    return torch.mean(ssim_map)
+    return (mu1, mu2, 2 * mu1_mu2 + C1, 2 * sigma12 + C2,
+            mu1_sq + mu2_sq + C1, sigma1_sq + sigma2_sq + C2)
+
+
+def ssim_plain(img1, img2, window_size: int = 11):
+    """Windowed SSIM, 11x11 gaussian sigma=1.5 (loss_utils.py:110-150).
+    img: [C,H,W] in [0,1].
+
+    The reference window is ``outer(g, g)`` of a 1D gaussian, exactly
+    separable, so the 2D convolution runs as two 11-tap 1D passes, as in
+    the JAX package.  The plain version of K7 (``csrc/ssim.cu``)."""
+    _, _, n1, n2, d1, d2 = _ssim_terms(img1, img2,
+                                       _gaussian_1d(window_size, 1.5))
+    return torch.mean((n1 * n2) / (d1 * d2))
+
+
+def ssim_backward_plain(img1, img2, grad, window_size: int = 11):
+    """The gradient of ``grad * ssim_plain(img1, img2)`` with respect to
+    img1, written out: the plain version of K8.  With S a pixel's SSIM, the
+    partials of S with respect to the three windowed planes that depend on
+    x are A (mu1), B (E[x^2]) and Cxy (E[xy]); the window is symmetric, so
+    the gradient is the window applied to them (zero outside the image),
+    combined per pixel.  ``grad`` is the upstream 0-d gradient."""
+    g = _gaussian_1d(window_size, 1.5)
+    C = img1.shape[0]
+    mu1, mu2, n1, n2, d1, d2 = _ssim_terms(img1, img2, g)
+    d = d1 * d2
+    s = (n1 * n2) / d
+    a = 2 * mu2 * (n2 - n1) / d - 2 * mu1 * s * (1 / d1 - 1 / d2)
+    b = -s / d2
+    cxy = 2 * n1 / d
+    w = _window_sum(torch.cat([a, b, cxy], dim=0), g)
+    return (grad / img1.numel()) * (
+        w[0:C] + 2 * img1 * w[C:2 * C] + img2 * w[2 * C:3 * C])
+
+
+def _taps(window_size: int):
+    """The window's taps as K7 and K8 take them: float32 on the host."""
+    return (ctypes.c_float * window_size)(*_gaussian_1d(window_size, 1.5))
+
+
+def _check_images(img1, img2):
+    """What K7 and K8 take: two float32 [C,H,W] images of one shape,
+    contiguous, on one CUDA device."""
+    req = _kernels.require
+    req(img1.device.type == "cuda", f"unsupported device {img1.device}")
+    req(img2.device == img1.device,
+        f"img2 is on {img2.device}, img1 on {img1.device}")
+    req(img1.dim() == 3 and img1.shape == img2.shape,
+        f"img1 {tuple(img1.shape)} and img2 {tuple(img2.shape)} must be one "
+        "[C,H,W] shape")
+    req(img1.dtype == torch.float32 and img2.dtype == torch.float32,
+        f"img1 and img2 must be float32, got {img1.dtype} and {img2.dtype}")
+    req(img1.is_contiguous() and img2.is_contiguous(),
+        "img1 and img2 must be contiguous")
+
+
+def ssim_forward(img1, img2):
+    """K7 wrapper: ``ssim_plain(img1, img2)`` as a 0-d tensor, in two
+    launches (the tiles' partial sums, then their mean)."""
+    _check_images(img1, img2)
+    C, H, W = img1.shape
+    lib = _kernels.lib()
+    dev = img1.device
+    partial = torch.empty(lib.gsplat_ssim_partials(C, H, W),
+                          dtype=torch.float32, device=dev)
+    out = torch.empty((), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.gsplat_ssim_forward(
+            img1.data_ptr(), img2.data_ptr(), C, H, W, _taps(_WINDOW),
+            ctypes.c_float(C1), ctypes.c_float(C2), partial.data_ptr(),
+            out.data_ptr(), _kernels.stream_of(img1))
+    _kernels.check(err, "ssim_forward")
+    _kernels.launch_counts["ssim_forward"] += 1
+    return out
+
+
+def ssim_backward(img1, img2, grad):
+    """K8 wrapper: ``ssim_backward_plain(img1, img2, grad)`` in one launch;
+    ``grad`` (0-d float32 on the device) is read there, never on the
+    host."""
+    _check_images(img1, img2)
+    C, H, W = img1.shape
+    dev = img1.device
+    grad = grad.to(device=dev, dtype=torch.float32).contiguous()
+    dx = torch.empty_like(img1)
+    with torch.cuda.device(dev):
+        err = _kernels.lib().gsplat_ssim_backward(
+            img1.data_ptr(), img2.data_ptr(), C, H, W, _taps(_WINDOW),
+            ctypes.c_float(C1), ctypes.c_float(C2), grad.data_ptr(),
+            dx.data_ptr(), _kernels.stream_of(img1))
+    _kernels.check(err, "ssim_backward")
+    _kernels.launch_counts["ssim_backward"] += 1
+    return dx
+
+
+class _SSIM(torch.autograd.Function):
+    """K7 forward; backward K8 (gradient for img1 only) in the
+    ``step.losses`` span."""
+
+    @staticmethod
+    def forward(ctx, img1, img2):
+        img1, img2 = img1.contiguous(), img2.contiguous()
+        ctx.save_for_backward(img1, img2)
+        return ssim_forward(img1, img2)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if not ctx.needs_input_grad[0]:
+            return None, None
+        with tracing.span("step.losses"):
+            return ssim_backward(*ctx.saved_tensors, grad), None
+
+
+def ssim(img1, img2, window_size: int = 11):
+    """Windowed SSIM, 11x11 gaussian sigma=1.5 (loss_utils.py:110-150).
+    img: [C,H,W] in [0,1].  A CPU tensor goes to ``ssim_plain``; a CUDA
+    tensor to K7, and its gradient (for img1 only) to K8.  The kernels take
+    the 11-tap window, float32 images of one shape on one device, and an
+    img2 that needs no gradient (the ground truth); anything else
+    raises."""
+    if img1.device.type == "cpu":
+        return ssim_plain(img1, img2, window_size)
+    req = _kernels.require
+    req(window_size == _WINDOW,
+        f"the SSIM kernels take an {_WINDOW}-tap window, got {window_size}")
+    req(not img2.requires_grad,
+        "img2 must not need a gradient: the kernels differentiate img1 only")
+    return _SSIM.apply(img1, img2)
 
 
 def segment_loss(segment_chw, gt_labels_hw):
